@@ -1,0 +1,161 @@
+"""The PyTorch port's sampler and serving API against the JAX package.
+
+Sampler: a tiny UNetModified2 with the same weights (through the bridge)
+runs ``SDDM.infer`` in both frameworks under one shared noise stream, for
+ancestral full-T, 3 subsampled steps, DDIM eta=0, and 3 steps of DDIM
+eta=0.5, which draws noise at every step but the last.  Each step adds the
+float32 difference of one forward (see test_torch_unet.py) and the steps'
+coefficients are below 1, so the chain is held to rtol 1e-4, atol 1e-4.
+
+Enhancer: the chunking, static row padding and trim are compared with the
+JAX ``Enhancer`` around the same deterministic stand-in model, and
+``load_enhancer`` is driven end to end on a tiny checkpoint written by the
+JAX package.
+"""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sddm_tpu.diffusion import DiffusionSchedule as JaxSchedule
+from sddm_tpu.enhance import Enhancer as JaxEnhancer
+from sddm_tpu.models import SDDM as JaxSDDM
+from sddm_tpu.models import UNetModified2 as JaxUNet
+from sddm_tpu.train.checkpoints import save_checkpoint
+from sddm_tpu_torch import enhance as tenh
+from sddm_tpu_torch.compat import state_dict_from_jax
+from sddm_tpu_torch.diffusion import DiffusionSchedule
+from sddm_tpu_torch.models import SDDM, UNetModified2
+
+NS = 72
+T = 8
+NET = dict(inner_channel=8, norm_groups=4, channel_mults=[1, 2], res_blocks=1,
+           segment_len=16, segment_stride=8)
+SCHED = dict(schedule="linear", n_timestep=T, linear_start=1e-4, linear_end=0.05)
+CONFIG = {
+    "num_samples": NS,
+    "arch": {"type": "SDDM", "args": {"p_transition": "condition_in"}},
+    "diffusion": {"type": "GaussianDiffusion", "args": SCHED},
+    "network": {"type": "UNetModified2", "args": dict(NET, in_channel=2, out_channel=1,
+                                                       dropout=0)},
+    "packed": True,
+}
+
+
+@pytest.fixture(scope="module")
+def nets():
+    jnet = JaxUNet(num_samples=NS, **NET)
+    params = jax.tree_util.tree_map(np.asarray, JaxSDDM(JaxSchedule.create(**SCHED), jnet)
+                                    .init(jax.random.PRNGKey(0), (1, 1, NS)))
+    tnet = UNetModified2(num_samples=NS, **NET).eval()
+    tnet.load_state_dict(state_dict_from_jax(params, NET["channel_mults"], 1, 8))
+    return jnet, tnet, params
+
+
+def _models(nets, **arch):
+    jnet, tnet, params = nets
+    return (JaxSDDM(JaxSchedule.create(**SCHED), jnet, **arch),
+            SDDM(DiffusionSchedule.create(**SCHED), tnet, **arch), params)
+
+
+@pytest.fixture(scope="module")
+def pair(nets):
+    return _models(nets, p_transition="condition_in")
+
+
+def _fewstep(m, steps, ddim):
+    if ddim:
+        m = m.with_ddim()
+    return m.with_sampling_steps(steps) if steps else m
+
+
+@pytest.mark.parametrize("steps,ddim,arch", [
+    (0, False, dict(p_transition="condition_in")),
+    (3, False, dict(p_transition="condition_in")),
+    (0, True, dict(p_transition="condition_in")),
+    (3, True, dict(p_transition="condition_in")),
+    (3, False, dict(p_transition="ddim", ddim_eta=0.5)),
+])
+def test_sampler_matches_jax_under_shared_noise(nets, steps, ddim, arch):
+    jmodel, tmodel, params = _models(nets, **arch)
+    jmodel, tmodel = _fewstep(jmodel, steps, ddim), _fewstep(tmodel, steps, ddim)
+    assert jmodel.num_timesteps == tmodel.num_timesteps == (steps or T)
+    rng = np.random.default_rng(steps + 10 * ddim)
+    cond = rng.uniform(-0.5, 0.5, (3, 1, NS)).astype(np.float32)
+    xT = rng.standard_normal(cond.shape).astype(np.float32)
+    step_noises = rng.standard_normal((tmodel.num_timesteps,) + cond.shape).astype(np.float32)
+    want = np.asarray(jax.jit(jmodel.infer)(
+        params, jax.random.PRNGKey(0), jnp.asarray(cond),
+        noise_stream=(jnp.asarray(xT), jnp.asarray(step_noises))))
+    got = tmodel.infer(torch.from_numpy(cond),
+                       noise_stream=(torch.from_numpy(xT), torch.from_numpy(step_noises)))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", [
+    dict(p_transition="original"),
+    dict(p_transition="condition_in", noise_condition="time_step"),
+    dict(p_transition="condition_in", q_transition="conditional"),
+])
+def test_sddm_refuses_settings_it_does_not_serve(nets, arch):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        SDDM(DiffusionSchedule.create(**SCHED), nets[1], **arch)
+
+
+class _Recorder:
+    """Deterministic stand-in sampler: y = 2 * condition + 1, shapes recorded."""
+
+    def __init__(self):
+        self.shapes = []
+        self.network = torch.nn.Linear(1, 1)
+
+    def infer(self, condition, *args, **kwargs):
+        self.shapes.append(tuple(condition.shape))
+        return 2 * condition + 1
+
+
+def test_enhancer_chunk_pad_trim_match_jax():
+    lens = [10, NS, NS + 1, 5 * NS - 3]
+    rng = np.random.default_rng(1)
+    audios = [rng.uniform(-0.3, 0.3, n).astype(np.float32) for n in lens]
+    rec = _Recorder()
+    got = tenh.Enhancer(rec, NS, batch_rows=3).enhance_batch(audios)
+    jrec = _Recorder()
+    jrec.infer = lambda params, key, cond: 2 * cond + 1
+    want = JaxEnhancer(jrec, None, NS, batch_rows=3).enhance_batch(audios)
+    assert [g.shape for g in got] == [w.shape for w in want] == [(n,) for n in lens]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    # 1 + 1 + 2 + 5 = 9 rows -> three calls of exactly batch_rows rows
+    assert rec.shapes == [(3, 1, NS)] * 3
+
+
+def test_load_enhancer_serves_a_jax_checkpoint(tmp_path, pair):
+    jmodel, _, params = pair
+    path = tmp_path / "model_best.ckpt"
+    save_checkpoint(path, arch="SDDM", epoch=1, params=params, opt_state={},
+                    monitor_best=0.0, config=CONFIG)
+    enh = tenh.load_enhancer(path, json.loads(json.dumps(CONFIG)), batch_rows=2,
+                             steps=3, ddim=True, device="cpu")
+    assert enh.device == torch.device("cpu")
+    cond = np.random.default_rng(2).uniform(-0.5, 0.5, (2, 1, NS)).astype(np.float32)
+    xT = np.zeros_like(cond)
+    want = np.asarray(jmodel.with_ddim().with_sampling_steps(3).infer(
+        params, jax.random.PRNGKey(0), jnp.asarray(cond),
+        noise_stream=(jnp.asarray(xT), None)))
+    got = enh.model.infer(torch.from_numpy(cond), noise_stream=(torch.from_numpy(xT), None))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    out = enh.enhance_batch([cond[0, 0, :50], cond[1, 0]])
+    assert [o.shape for o in out] == [(50,), (NS,)]
+    assert all(np.isfinite(o).all() for o in out)
+
+
+def test_load_enhancer_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tenh.load_enhancer("unused.ckpt", CONFIG)
