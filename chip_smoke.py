@@ -27,6 +27,25 @@ Phases, each of which exits non-zero when it fails:
   8. profile one served batch: device busy time by kernel, and the idle
      share against the unprofiled serve time of phase 5 (the profiler's own
      host cost inflates its wall time; both are printed).
+Then the DiffWave vocoder (SDDM_spectrogram + FusedDiffWave, the committed
+``artifacts/round5/diffwave`` checkpoint, bf16, DDIM-6):
+  9. the build of the CUDA residual-stack kernel, started in phase 2 beside
+     the GroupNorm+SiLU build (build time and the ``-Xptxas -v`` summary);
+ 10. hold ``diffwave_stack`` against its plain version at the served shape
+     [8, 16384, 64], L=30, cycle 10, on the checkpoint's stacked weights, in
+     bfloat16 and float32, and at an odd shape and at L < cycle;
+ 11. load the checkpoint through ``load_specmodel`` with ``"packed": true``
+     and serve 8 seeded 16384-sample clips as one batch of raw audio: shape,
+     finiteness, 6 stack calls and 180 layer launches;
+ 12. serve the same batch through the plain ``diffwave_stack_reference``
+     with the same weights and noise, in bfloat16 and float32, and hold the
+     kernel path against it; one float32 forward on the card against the
+     CPU;
+ 13. time the kernel, its plain version and the same layers through cuDNN
+     ``conv1d`` with CUDA events, beside the bound; time one served batch at
+     DDIM-6 and at ancestral T=200; peak device memory;
+ 14. profile one DDIM-6 served batch: device busy time by kernel, and the
+     idle share against the unprofiled serve of phase 13.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing of JAX
@@ -35,6 +54,7 @@ or of the JAX package.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import math
@@ -45,6 +65,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 RUN = ROOT / "artifacts" / "flagship_synth"
+VOCODER = ROOT / "artifacts" / "round5" / "diffwave"
 SEED = 0
 BATCH_ROWS = 16
 STEPS = 12
@@ -66,6 +87,32 @@ E2E_TOL = {"bfloat16": (5e-3, 2e-2), "float32": (2e-6, 3e-6)}
 # one float32 forward on the card (TF32 off) vs the CPU: the CPU port
 # matches JAX to 1e-3 (tests/test_torch_checkpoint.py); the same bound here.
 CARD_VS_CPU_TOL = 1e-3
+
+# the DiffWave vocoder: 8 clips of 16384 samples, DDIM-6 (the quality-preferred
+# few-step recipe of the JAX package's round-5 table), bf16
+DW_CLIPS, DW_SAMPLES, DW_STEPS, DW_ANCESTRAL = 8, 16384, 6, 200
+DW_LAYERS, DW_CYCLE = 30, 10
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+# Limits of the vocoder phases, each its reading on an NVIDIA H100 80GB HBM3 at
+# 700 W times 2.5 to 5 (the first limits, set before any reading, were
+# max |d| 1e-4 in float32 and 0.047 in bfloat16 per call and served, rel L2
+# 1e-4 for the float32 served output, 1e-4 card vs CPU).
+# diffwave_stack vs its plain version, per call, on the skip sum of the
+# three cases of phase 10: float32 (max |d|, rel L2), read 1.9e-5 and
+# 1.5e-7 at most.  bfloat16 (max |d| in bf16 ulps of the largest output, rel
+# L2): both sides round at the same points, so they differ where an f32 sum
+# in another order rounds to the neighbouring bf16 value and later layers
+# carry the flip; read 3 ulps (0.75 on a skip sum of 46.75) and 3.3e-3.  The
+# JAX package's 0.047 compares network outputs, not this pre-head sum.
+DW_TOL = {"float32": (1e-4, 5e-7), "bfloat16": (8, 1e-2)}
+# served waveforms, kernel path vs plain path, same weights and noise, as
+# (max |d|, relative L2): float32 read 2.1e-7 and 1.5e-6; bfloat16 5.5e-3 and
+# 3.9e-2 (six DDIM steps, each dividing the noise estimate's rounding by
+# sqrt(alpha_bar), 0.36 at t=200, carry the per-call differences).
+DW_E2E_TOL = {"float32": (1e-6, 6e-6), "bfloat16": (2e-2, 0.15)}
+# one float32 DiffWave forward on the card (kernel, TF32 off) vs the CPU port
+# (plain DiffWave): read 1.2e-6.
+DW_CARD_VS_CPU_TOL = 5e-6
 
 
 def log(msg: str = "") -> None:
@@ -124,6 +171,349 @@ def plain_gn_silu():
         blocks.gn_silu = gn_silu
 
 
+@contextlib.contextmanager
+def plain_diffwave_stack():
+    """Route FusedDiffWave's residual stack to ``diffwave_stack_reference``,
+    the plain version the kernel is held against, for the duration of the
+    block."""
+    from sddm_tpu_torch.models import diffwave_fused
+    from sddm_tpu_torch.ops.diffwave_stack import diffwave_stack, diffwave_stack_reference
+
+    diffwave_fused.diffwave_stack = diffwave_stack_reference
+    try:
+        yield
+    finally:
+        diffwave_fused.diffwave_stack = diffwave_stack
+
+
+def bf16_ulp(v: float) -> float:
+    """The spacing of bfloat16 values at magnitude ``v``."""
+    return 2.0 ** (math.floor(math.log2(v)) - 7)
+
+
+def differences(got, want):
+    """(max |d|, relative L2) of ``got`` against ``want``."""
+    d = got.float() - want.float()
+    return float(d.abs().max()), float(d.norm() / want.float().norm())
+
+
+def clips(n: int, length: int):
+    """Seeded voiced clips ``[n, 1, length]`` at 16 kHz: harmonic tones with
+    a drifting pitch under a syllable-rate envelope, plus a little noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 1)
+    t = np.arange(length) / 16000.0
+    out = np.zeros((n, 1, length), np.float32)
+    for i in range(n):
+        f0 = rng.uniform(90, 260) * (1 + 0.05 * np.sin(2 * np.pi * rng.uniform(0.5, 2) * t))
+        phase = 2 * np.pi * np.cumsum(f0) / 16000.0
+        voiced = sum(np.sin(k * phase) / k for k in range(1, 8))
+        env = 0.5 * (1 + np.sin(2 * np.pi * rng.uniform(2, 5) * t + rng.uniform(0, 6)))
+        out[i, 0] = 0.15 * env * voiced + 0.003 * rng.standard_normal(length)
+    return out
+
+
+def stack_inputs(fused, spec, x_t, t_step: float, dtype):
+    """The six inputs of ``diffwave_stack`` in the served engine at ``dtype``:
+    the checkpoint's stacked weights, the stem of ``x_t``, the conditioner
+    stack of the spectrogram ``spec`` and the embedding of step ``t_step``."""
+    import torch
+
+    net = fused.net
+    served = net.dtype
+    net.dtype = dtype
+    try:
+        with torch.no_grad():
+            prep = fused.prepare()
+            cond_l = fused.prepare_condition(prep, spec, x_t.shape[-1])["cond_l"]
+            x0 = net.stem(x_t).transpose(1, 2).contiguous()
+            t = torch.full((x_t.shape[0],), t_step, device=x_t.device)
+            emb512 = net.diffusion_embedding(t.to(dtype))
+            emb_d = torch.einsum("be,lec->lbc", emb512, prep["wemb"]) + prep["bemb"][:, None, :]
+    finally:
+        net.dtype = served
+    return [x0, cond_l, emb_d.contiguous(), prep["wconv"], prep["wrs"], prep["brs"]]
+
+
+def stack_bound(args):
+    """(bound ms, "bytes" or "operations", bytes, operations) of one stack
+    call: each input read once and the skip sum written once at 3.35 TB/s,
+    against 2 B T L (3 C 2C + C 2C) operations at the peak of their type."""
+    import torch
+
+    x0, wconv = args[0], args[3]
+    B, T, C = x0.shape
+    L = wconv.shape[0]
+    n_bytes = sum(a.numel() * a.element_size() for a in args) + x0.numel() * x0.element_size()
+    ops = 2 * B * T * L * (3 * C * 2 * C + C * 2 * C)
+    peak = BF16_OPS_PER_S if x0.dtype == torch.bfloat16 else F32_OPS_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", n_bytes, ops
+
+
+def cudnn_stack(x0, cond, emb_d, wconv, wrs, brs, cycle: int):
+    """The same layers as unfused PyTorch calls in DiffWave's NCL layout: the
+    dilated and 1x1 convolutions through cuDNN ``conv1d``, the gate and the
+    updates as elementwise kernels (``cond`` as ``[L, B, 2C, T]``, weights as
+    ``conv1d`` takes them).  The timing yardstick of phase 13."""
+    import torch
+    import torch.nn.functional as F
+
+    C = x0.shape[1]
+    x, skip = x0, None
+    for l in range(wconv.shape[0]):
+        d = 1 << (l % cycle)
+        y = F.conv1d(x + emb_d[l][:, :, None], wconv[l], padding=d, dilation=d) + cond[l]
+        g = torch.sigmoid(y[:, :C]) * torch.tanh(y[:, C:])
+        rs = F.conv1d(g, wrs[l], brs[l])
+        x = (x + rs[:, :C]) * (1.0 / math.sqrt(2.0))
+        skip = rs[:, C:] if skip is None else skip + rs[:, C:]
+    return skip
+
+
+def vocoder_phases(device, dw_built) -> tuple:
+    """Phases 9-14 (the DiffWave vocoder); returns its kernel record and its
+    serve record.  A reading over its limit is marked OVER where it is
+    printed and fails the run once phase 14 has printed its readings."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sddm_tpu_torch import load_specmodel
+    from sddm_tpu_torch.cli import build_arch, build_diffusion
+    from sddm_tpu_torch.models import DiffWave, FusedDiffWave
+    from sddm_tpu_torch.ops import diffwave_stack as dw_ops
+    from sddm_tpu_torch.ops.gn_silu import gn_silu
+
+    stack, reference = dw_ops.diffwave_stack, dw_ops.diffwave_stack_reference
+
+    # -- 9. the build, started in phase 2 ------------------------------------
+    log(f"[9] build: {dw_built['path'].name} in {dw_built['seconds']:.2f} s, in parallel "
+        f"with gn_silu{' (cached)' if dw_built['cached'] else ''}")
+    for line in dw_built["log"].splitlines():
+        if any(k in line for k in ("Compiling entry", "Used", "spill", "stack frame")):
+            log(f"    ptxas: {line.strip()}")
+
+    # -- 10. kernel vs plain, per call -----------------------------------------
+    config = json.loads((VOCODER / "config.json").read_text())
+    config["packed"] = True  # the JAX package's switch for the fused engine
+    t0 = time.perf_counter()
+    model = load_specmodel(VOCODER / "model_best.ckpt", config, steps=DW_STEPS, ddim=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    fused = model.network
+    if not (isinstance(fused, FusedDiffWave) and fused.net.dtype == torch.bfloat16
+            and model.num_timesteps == DW_STEPS and model.p_transition == "ddim"):
+        fail("the served vocoder is not the bf16 fused DDIM-6 recipe")
+    audio = torch.from_numpy(clips(DW_CLIPS, DW_SAMPLES)).to(device)
+    spec = model.feature_fn(audio)  # [8, 513, 64]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x_t = torch.randn((DW_CLIPS, 1, DW_SAMPLES), device=device, generator=gen)
+    log(f"[10] diffwave_stack vs diffwave_stack_reference on the checkpoint's stacked "
+        f"weights (stem of N(0,1) x_t, features of {DW_CLIPS} seeded clips, step 100)")
+    per_call = {}
+    over = []  # readings over their limits
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        full = stack_inputs(fused, spec, x_t, 100.0, dtype)
+        cases = [("served", full, DW_CYCLE)]
+        cases.append(("odd B=3 T=1000 L=7 cycle 3",
+                      [a.contiguous() for a in (full[0][:3, :1000], full[1][:7, :3, :1000],
+                                                full[2][:7, :3], full[3][:7], full[4][:7],
+                                                full[5][:7])], 3))
+        cases.append(("L<cycle B=2 T=200 L=9 cycle 10",
+                      [a.contiguous() for a in (full[0][:2, :200], full[1][:9, :2, :200],
+                                                full[2][:9, :2], full[3][:9], full[4][:9],
+                                                full[5][:9])], 10))
+        for label, args, cycle in cases:
+            got = stack(*args, cycle=cycle)
+            torch.cuda.synchronize()
+            want = reference(*args, cycle=cycle)
+            if got.dtype != dtype or got.shape != args[0].shape or not torch.isfinite(got).all():
+                fail(f"diffwave_stack output at {label} {name}: {got.dtype} {tuple(got.shape)}")
+            err, rel = differences(got, want)
+            per_call[(name, label)] = (err, rel)
+            scale = float(want.float().abs().max())
+            tol_abs, tol_rel = DW_TOL[name]
+            if dtype == torch.bfloat16:
+                tol_abs *= bf16_ulp(scale)
+            ok = err <= tol_abs and rel <= tol_rel
+            log(f"    {label:32s} {name:8s} max|d|={err:.3e} rel_l2={rel:.3e} "
+                f"(tol {tol_abs:.3g}, {tol_rel}) scale {scale:.3f} {'ok' if ok else 'OVER'}")
+            if not ok:
+                over.append(f"[10] {label} {name}: max|d| {err}, rel_l2 {rel}")
+
+    del full, cases, args, got, want  # phase 13 makes its inputs again
+
+    # -- 11. serve -------------------------------------------------------------
+    def serve(m, seed):
+        g = torch.Generator(device=device).manual_seed(seed)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = m.infer(audio, g)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - start
+
+    _, warm_s = serve(model, SEED + 1)
+    torch.cuda.reset_peak_memory_stats()
+    gn_silu.launches = 0
+    stack.launches = stack.layer_launches = 0
+    out, serve_s = serve(model, SEED)
+    calls, layers, gn_calls = stack.launches, stack.layer_launches, gn_silu.launches
+    peak = torch.cuda.max_memory_allocated()
+    audio_s = DW_CLIPS * DW_SAMPLES / config["sample_rate"]
+    log(f"[11] load_specmodel(steps={DW_STEPS}, ddim=True, packed) {load_s:.2f} s; served "
+        f"{DW_CLIPS} x {DW_SAMPLES} samples ({audio_s:.2f} s of audio) from a "
+        f"{list(spec.shape)} condition: warm-up {warm_s:.3f} s, timed "
+        f"{serve_s:.4f} s (RTF {serve_s / audio_s:.5f}); diffwave_stack calls {calls}, layer "
+        f"launches {layers}, gn_silu launches {gn_calls}; peak {peak / 2**20:.1f} MiB")
+    if tuple(out.shape) != (DW_CLIPS, 1, DW_SAMPLES) or not torch.isfinite(out).all():
+        fail(f"served vocoder output {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+    if calls != DW_STEPS or layers != DW_STEPS * DW_LAYERS:
+        fail(f"diffwave_stack ran {calls} calls and {layers} layer launches, expected "
+             f"{DW_STEPS} and {DW_STEPS * DW_LAYERS}")
+
+    # -- 12. the same batch through the plain stack ------------------------------
+    net = fused.net
+    e2e = {}
+    outs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        net.dtype = dtype
+        kernel_out, kernel_s = out, serve_s
+        if dtype != torch.bfloat16:
+            serve(model, SEED + 1)
+            kernel_out, kernel_s = serve(model, SEED)
+        with plain_diffwave_stack():
+            plain_out, plain_s = serve(model, SEED)
+        outs[name] = kernel_out, plain_out
+        err, rel = differences(kernel_out, plain_out)
+        e2e[name] = {"max_abs": err, "rel_l2": rel, "kernel_s": kernel_s, "plain_s": plain_s}
+        tol_abs, tol_rel = DW_E2E_TOL[name]
+        ok = err <= tol_abs and rel <= tol_rel
+        log(f"[12] {name}: kernel path vs plain path, same weights and noise: max|d|={err:.3e} "
+            f"rel_l2={rel:.3e} (tol {tol_abs}, {tol_rel}) {'ok' if ok else 'OVER'}; serve "
+            f"{kernel_s:.4f} s vs {plain_s:.4f} s")
+        if not ok:
+            over.append(f"[12] served {name}: max|d| {err}, rel_l2 {rel}")
+    net.dtype = torch.bfloat16
+    bf16_vs_f32 = {"kernel": differences(outs["bfloat16"][0], outs["float32"][1]),
+                   "plain": differences(outs["bfloat16"][1], outs["float32"][1])}
+    log(f"     bf16 vs the f32 plain path (max|d|, rel_l2): kernel path "
+        f"{bf16_vs_f32['kernel'][0]:.3e}, {bf16_vs_f32['kernel'][1]:.3e}; plain path "
+        f"{bf16_vs_f32['plain'][0]:.3e}, {bf16_vs_f32['plain'][1]:.3e}")
+    del outs
+    n_short = 4096
+    spec_short = model.feature_fn(audio[:1, :, :n_short])
+    xs = x_t[:1, :, :n_short]
+    level = torch.full((1, 1, 1), 57.0, device=device)
+    net.dtype = torch.float32
+    with torch.no_grad():
+        on_card = fused(spec_short, xs, level)
+        cpu_net = DiffWave(freq_bins=spec.shape[1], **config["network"]["args"]).eval()
+        cpu_net.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+        on_cpu = cpu_net(spec_short.cpu(), xs.cpu(), level.cpu())
+    net.dtype = torch.bfloat16
+    card_cpu_err = float((on_card.cpu() - on_cpu).abs().max())
+    log(f"     float32 forward [1, 1, {n_short}], card (kernel) vs CPU (plain DiffWave): "
+        f"max|d|={card_cpu_err:.3e} (tol {DW_CARD_VS_CPU_TOL})")
+    if not card_cpu_err <= DW_CARD_VS_CPU_TOL:
+        over.append(f"[12] card vs CPU float32 forward: max|d| {card_cpu_err}")
+
+    # -- 13. times ----------------------------------------------------------------
+    args = stack_inputs(fused, spec, x_t, 100.0, torch.bfloat16)
+    bound_ms, bound_by, n_bytes, n_ops = stack_bound(args)
+    x0, cond, emb_d, wconv, wrs, brs = args
+    cudnn_args = (x0.transpose(1, 2).contiguous(), cond.transpose(2, 3).contiguous(),
+                  emb_d, wconv.permute(0, 3, 2, 1).contiguous(),
+                  wrs.transpose(1, 2)[..., None].contiguous(), brs[:, 0].contiguous())
+    with torch.no_grad():
+        cudnn_err, cudnn_rel = differences(cudnn_stack(*cudnn_args, DW_CYCLE).transpose(1, 2),
+                                           reference(*args, cycle=DW_CYCLE))
+    kernel_ms = cuda_time_ms(lambda: stack(*args, cycle=DW_CYCLE), iters=20, warmup=3)
+    plain_ms = cuda_time_ms(lambda: reference(*args, cycle=DW_CYCLE), iters=5, warmup=2)
+    cudnn_ms = cuda_time_ms(lambda: cudnn_stack(*cudnn_args, DW_CYCLE), iters=10, warmup=3)
+    kernel_ms2 = cuda_time_ms(lambda: stack(*args, cycle=DW_CYCLE), iters=20, warmup=3)
+    del cudnn_args
+    args32 = stack_inputs(fused, spec, x_t, 100.0, torch.float32)
+    bound32_ms, bound32_by, _, _ = stack_bound(args32)
+    f32_ms = cuda_time_ms(lambda: stack(*args32, cycle=DW_CYCLE), iters=5, warmup=2)
+    log(f"[13] diffwave_stack [{DW_CLIPS},{DW_SAMPLES},64] L={DW_LAYERS} bf16: kernel "
+        f"{kernel_ms:.3f} / {kernel_ms2:.3f} ms, plain {plain_ms:.3f} ms, cuDNN conv1d stack "
+        f"{cudnn_ms:.3f} ms (vs plain max|d| {cudnn_err:.3e}, rel_l2 {cudnn_rel:.3e}); bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {n_bytes} B at 3.35 TB/s, {n_ops:.4g} ops at 989 "
+        f"TFLOP/s); {n_bytes / kernel_ms / 1e6:.0f} GB/s, {n_ops / kernel_ms / 1e9:.1f} TFLOP/s; "
+        f"f32 kernel {f32_ms:.3f} ms (bound {bound32_ms:.3f} ms, {bound32_by})")
+    ancestral = build_arch(config, build_diffusion(config), fused, hop_samples=model.hop_samples,
+                           feature_fn=model.feature_fn)
+    stack.launches = stack.layer_launches = 0
+    _, anc_s = serve(ancestral, SEED)
+    anc_layers = stack.layer_launches
+    log(f"     served batch: DDIM-{DW_STEPS} {serve_s:.4f} s (RTF {serve_s / audio_s:.5f}), "
+        f"ancestral T={ancestral.num_timesteps} {anc_s:.3f} s (RTF {anc_s / audio_s:.5f}, "
+        f"{anc_layers} layer launches); peak {peak / 2**20:.1f} MiB (DDIM-{DW_STEPS})")
+    if anc_layers != DW_ANCESTRAL * DW_LAYERS:
+        fail(f"the ancestral serve ran {anc_layers} layer launches")
+
+    # -- 14. profile one DDIM-6 served batch --------------------------------------
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        model.infer(audio, torch.Generator(device=device).manual_seed(SEED))
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - start) * 1e3
+    device_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = {e.key: e.self_device_time_total / 1e3 for e in device_events}
+    busy_ms = sum(busy.values())
+    stack_ms = sum(v for k, v in busy.items() if "layer_bf16" in k)
+    idle_share = 1 - busy_ms / (serve_s * 1e3)
+    if busy_ms > 0:
+        log(f"[14] profiled DDIM-{DW_STEPS} serve: device busy {busy_ms:.2f} ms, idle share "
+            f"{idle_share:.3f} of the unprofiled serve ({serve_s * 1e3:.2f} ms, phase 11); "
+            f"{1 - busy_ms / prof_wall_ms:.3f} of the profiled wall ({prof_wall_ms:.2f} ms); "
+            f"diffwave_stack layers {stack_ms:.2f} ms ({stack_ms / busy_ms:.3f} of busy)")
+        for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:12]:
+            n_calls = next(e.count for e in device_events if e.key == key)
+            log(f"    {ms:9.3f} ms {ms / busy_ms:6.3f} x{n_calls:<5d} {key[:90]}")
+    else:
+        log("[14] the profiler saw no device time: breakdown not measured")
+    if over:
+        fail(f"readings over their limits: {over}")
+
+    kernel_record = {
+        "name": "diffwave_stack",
+        "route": "cuda",
+        "source": "sddm_tpu_torch/csrc/diffwave_stack.cu",
+        "replaces": "sddm_tpu/ops/pallas/diffwave_stack.py:183",
+        "launches": layers,
+        "stack_calls": calls,
+        "max_abs_err": per_call[("bfloat16", "served")][0],
+        "rel_l2": per_call[("bfloat16", "served")][1],
+        "max_abs_err_f32": per_call[("float32", "served")][0],
+        "per_call": {f"{k[0]} {k[1]}": v for k, v in per_call.items()},
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "cudnn_conv1d_stack_ms": cudnn_ms,
+        "f32_ms": f32_ms,
+        "f32_bound_ms": bound32_ms,
+        "shape": list(x0.shape) + [DW_LAYERS],
+        "dtype": "bfloat16",
+    }
+    serve_record = {
+        "clips": DW_CLIPS, "samples": DW_SAMPLES, "steps": DW_STEPS, "seconds": serve_s,
+        "audio_seconds": audio_s, "rtf": serve_s / audio_s, "ancestral_seconds": anc_s,
+        "ancestral_steps": DW_ANCESTRAL, "peak_bytes": peak, "e2e": e2e,
+        "bf16_vs_f32_plain": bf16_vs_f32, "card_vs_cpu_f32": card_cpu_err, "load_seconds": load_s,
+        "profile": {"wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+                    "idle_share": idle_share, "diffwave_stack_ms": stack_ms},
+    }
+    return kernel_record, serve_record
+
+
 def requests(n: int = 4):
     """Seeded noisy requests of 1-3 s at 16 kHz: harmonic tones under a
     syllable-rate envelope plus white noise at 5 dB SNR."""
@@ -150,7 +540,8 @@ def main() -> int:
     # -- 1. the card --------------------------------------------------------
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
-    if not (ROOT / "sddm_tpu_torch").is_dir() or not (RUN / "model_best.ckpt").is_file():
+    if not (ROOT / "sddm_tpu_torch").is_dir() or not all(
+            (d / "model_best.ckpt").is_file() for d in (RUN, VOCODER)):
         fail(f"{ROOT} is not a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     import torch.nn.functional as F
@@ -159,6 +550,7 @@ def main() -> int:
     from sddm_tpu_torch import load_enhancer
     from sddm_tpu_torch.models import UNetModified2
     from sddm_tpu_torch.models.blocks import GroupNormSiLU
+    from sddm_tpu_torch.ops import diffwave_stack as dw_ops
     from sddm_tpu_torch.ops.gn_silu import build, gn_silu, gn_silu_reference
 
     if Path(sddm_tpu_torch.__file__).resolve().parent != ROOT / "sddm_tpu_torch":
@@ -173,8 +565,10 @@ def main() -> int:
     log(f"    python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
 
-    # -- 2. build -----------------------------------------------------------
-    built = build()
+    # -- 2. build: one nvcc per kernel source, started together -------------
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        gn_build, dw_build = pool.submit(build), pool.submit(dw_ops.build)
+        built, dw_built = gn_build.result(), dw_build.result()
     log(f"[2] build: {built['path'].name} in {built['seconds']:.2f} s"
         f"{' (cached)' if built['cached'] else ''}")
     for line in built["log"].splitlines():
@@ -378,6 +772,8 @@ def main() -> int:
     else:
         log("[8] the profiler saw no device time: breakdown not measured")
 
+    dw_record, dw_serve = vocoder_phases(device, dw_built)
+
     record_line = {"kernels": [{
         "name": "gn_silu",
         "route": "cuda",
@@ -396,12 +792,14 @@ def main() -> int:
         "dtype": "bfloat16",
         "sites_per_forward_ms": per_forward[0],
         "plain_sites_per_forward_ms": per_forward[1],
-    }], "serve": {"requests": len(audios), "rows": n_rows, "steps": STEPS,
+    }, dw_record], "serve": {"requests": len(audios), "rows": n_rows, "steps": STEPS,
                   "seconds": serve_s, "audio_seconds": audio_s, "peak_bytes": peak,
                   "e2e": e2e, "card_vs_cpu_f32": card_cpu_err,
                   "profile": {"wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
                               "idle_share": idle_share, "gn_silu_ms": gn_ms}},
-        "build_seconds": built["seconds"], "nvidia_smi": smi}
+        "serve_diffwave": dw_serve,
+        "build_seconds": {"gn_silu": built["seconds"], "diffwave_stack": dw_built["seconds"]},
+        "nvidia_smi": smi}
     log(smi)
     print(json.dumps(record_line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -2,8 +2,11 @@
 
 Imports torch and numpy only; nothing of JAX, flax, msgpack or ``sddm_tpu``.
 Module names mirror ``sddm_tpu``'s so each counterpart is easy to find.
+Entry points: ``load_enhancer`` (SDDM + UNetModified2 speech enhancement)
+and ``load_specmodel`` (SDDM_spectrogram + DiffWave vocoding).
 """
 
 from .enhance import Enhancer, load_enhancer
+from .specmodel import load_specmodel
 
-__all__ = ["Enhancer", "load_enhancer"]
+__all__ = ["Enhancer", "load_enhancer", "load_specmodel"]

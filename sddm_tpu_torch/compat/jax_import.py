@@ -1,12 +1,18 @@
-"""The weight bridge: a JAX/flax UNetModified2 parameter tree (numpy) to the
-port's ``state_dict``.
+"""The weight bridge: JAX/flax parameter trees (numpy) to the port's
+``state_dict``s.
 
-It is the inverse of ``sddm_tpu/compat/torch_import.py``, which maps the
-reference PyTorch names onto the flax tree; the port's modules carry those
-reference names, so the same table serves both ways:
-  - conv kernel ``[kh, kw, I, O]`` -> weight ``[O, I, kh, kw]``;
-  - dense kernel ``[I, O]``        -> weight ``[O, I]``;
-  - GroupNorm ``scale``            -> ``weight``.
+``state_dict_from_jax`` (UNetModified2) is the inverse of
+``sddm_tpu/compat/torch_import.py`` and ``diffwave_state_dict_from_jax`` the
+inverse of ``sddm_tpu/compat/zoo_import.py::import_diffwave_state``; both map
+the reference PyTorch names onto the flax tree, and the port's modules carry
+those names, so the same tables serve both ways:
+  - conv kernel ``[kh, kw, I, O]``       -> weight ``[O, I, kh, kw]``;
+  - conv1d kernel ``[k, I, O]``          -> weight ``[O, I, k]``;
+  - transposed conv ``[kh, kw, I, O]``   -> weight ``[I, O, kh, kw]``, both
+    spatial axes flipped (flax runs the kernel as given, torch correlates
+    with the flipped kernel);
+  - dense kernel ``[I, O]``              -> weight ``[O, I]``;
+  - GroupNorm ``scale``                  -> ``weight``.
 """
 
 from __future__ import annotations
@@ -29,6 +35,17 @@ def _conv(out: dict, name: str, p: Mapping) -> None:
 
 def _dense(out: dict, name: str, p: Mapping) -> None:
     out[f"{name}.weight"] = _tensor(np.asarray(p["kernel"]).T)
+    out[f"{name}.bias"] = _tensor(p["bias"])
+
+
+def _conv1d(out: dict, name: str, p: Mapping) -> None:
+    out[f"{name}.weight"] = _tensor(np.transpose(np.asarray(p["kernel"]), (2, 1, 0)))
+    out[f"{name}.bias"] = _tensor(p["bias"])
+
+
+def _conv_transpose2d(out: dict, name: str, p: Mapping) -> None:
+    k = np.asarray(p["kernel"])[::-1, ::-1]
+    out[f"{name}.weight"] = _tensor(np.transpose(k, (2, 3, 0, 1)))
     out[f"{name}.bias"] = _tensor(p["bias"])
 
 
@@ -92,4 +109,30 @@ def state_dict_from_jax(
             idx += 1
 
     _block(out, "final_conv", p["Block_0"])
+    return out
+
+
+def diffwave_state_dict_from_jax(
+    params: Mapping, residual_layers: int = 30,
+) -> "OrderedDict[str, torch.Tensor]":
+    """Convert flax DiffWave params (``{"params": {...}}`` or the inner tree)
+    into a ``state_dict`` for :class:`sddm_tpu_torch.models.DiffWave` with
+    ``residual_layers`` blocks."""
+    p = params["params"] if "params" in params else params
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    _conv1d(out, "input_projection", p["Conv_0"])
+    _dense(out, "diffusion_embedding.projection1", p["DiffusionEmbedding_0"]["Dense_0"])
+    _dense(out, "diffusion_embedding.projection2", p["DiffusionEmbedding_0"]["Dense_1"])
+    ups = p["SpectrogramUpsampler_0"]
+    _conv_transpose2d(out, "spectrogram_upsampler.conv1", ups["ConvTranspose_0"])
+    _conv_transpose2d(out, "spectrogram_upsampler.conv2", ups["ConvTranspose_1"])
+    for i in range(residual_layers):
+        block, name = p[f"ResidualBlock_{i}"], f"residual_layers.{i}"
+        _conv1d(out, f"{name}.dilated_conv", block["Conv_0"])
+        _dense(out, f"{name}.diffusion_projection", block["Dense_0"])
+        _conv1d(out, f"{name}.conditioner_projection", block["Conv_1"])
+        _conv1d(out, f"{name}.output_residual", block["Conv_2"])
+        _conv1d(out, f"{name}.output_projection", block["Conv_3"])
+    _conv1d(out, "skip_projection", p["Conv_1"])
+    _conv1d(out, "output_projection", p["Conv_2"])
     return out

@@ -15,73 +15,21 @@ raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "gn_silu.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from .cuda_build import CSRC, CudaLibrary
 
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = Path(home) / "bin" / "nvcc"
-    if not path.is_file():
-        raise RuntimeError(f"nvcc not found on PATH or at {path}; set CUDA_HOME")
-    return str(path)
+SOURCE = CSRC / "gn_silu.cu"
+_LIB = CudaLibrary(SOURCE, {
+    name: [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    for name in ("gn_silu_f32", "gn_silu_bf16")
+})
 
 
 def build() -> dict:
-    """Compile ``csrc/gn_silu.cu`` (once per source and flag set) and return
-    ``{"path", "seconds", "log", "cached"}``; ``log`` holds nvcc's
-    ``-Xptxas -v`` register and shared-memory summary."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"gn_silu_{digest.hexdigest()[:16]}.so"
-    if out.is_file():
-        return {"path": out, "seconds": 0.0, "log": "", "cached": True}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - start
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)
-    return {"path": out, "seconds": seconds, "log": log, "cached": False}
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()["path"]))
-            for name in ("gn_silu_f32", "gn_silu_bf16"):
-                fn = getattr(lib, name)
-                fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-                    ctypes.c_float, ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+    """Compile ``csrc/gn_silu.cu`` (see :func:`cuda_build.build`)."""
+    return _LIB.build()
 
 
 def gn_silu_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -130,7 +78,7 @@ def gn_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"gn_silu runs on cuda or cpu, not {x.device}")
     _check(x, weight, bias, num_groups)
-    lib = _load()
+    lib = _LIB.get()
     fn = lib.gn_silu_bf16 if x.dtype == torch.bfloat16 else lib.gn_silu_f32
     y = torch.empty_like(x)
     b, c, h, w = x.shape

@@ -98,8 +98,8 @@ def test_sampler_matches_jax_under_shared_noise(nets, steps, ddim, arch):
 
 
 @pytest.mark.parametrize("arch", [
-    dict(p_transition="original"),
-    dict(p_transition="condition_in", noise_condition="time_step"),
+    dict(p_transition="sr3"),
+    dict(p_transition="supportive"),
     dict(p_transition="condition_in", q_transition="conditional"),
 ])
 def test_sddm_refuses_settings_it_does_not_serve(nets, arch):
