@@ -7,13 +7,15 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each of which exits non-zero when it fails:
   1. the card: name, nvidia-smi name and power limit, versions;
-  2. build the CUDA GroupNorm+SiLU kernel with nvcc (build time and the
-     ``-Xptxas -v`` summary);
-  3. hold the kernel against its plain PyTorch version at every GroupNorm
-     site of the flagship network, batch 16, in float32 and bfloat16, plus an
-     odd shape (unaligned path) and a near-constant group (variance clamp);
-  4. load the committed flagship checkpoint through ``load_enhancer`` at
-     ancestral-12 (the serving recipe, bfloat16 compute);
+  2. build the CUDA GroupNorm+SiLU kernels (NCHW and NHWC, one source) with
+     nvcc (build time and the ``-Xptxas -v`` summary);
+  3. hold the NCHW kernel against its plain PyTorch version at every
+     GroupNorm site of the plain flagship network, batch 16, in float32 and
+     bfloat16, plus an odd shape (unaligned path) and a near-constant group
+     (variance clamp);
+  4. load the committed flagship checkpoint through ``load_enhancer`` with
+     ``packed=False``, the plain NCHW network, at ancestral-12 (the serving
+     recipe, bfloat16 compute);
   5. serve four seeded noisy requests as one ``enhance_batch``: shapes,
      trims, finiteness, the clip bound, and ``gn_silu.launches`` equal to
      33 sites x 12 steps x batches;
@@ -27,25 +29,47 @@ Phases, each of which exits non-zero when it fails:
   8. profile one served batch: device busy time by kernel, and the idle
      share against the unprofiled serve time of phase 5 (the profiler's own
      host cost inflates its wall time; both are printed).
+Then the packed (space-to-depth) engine, ``load_enhancer``'s default:
+  9. load the flagship through ``load_enhancer(steps=12)`` with its defaults:
+     the network must be ``PackedUNetModified2`` and its canary must pass;
+     hold the NHWC GroupNorm+SiLU(+offset mask) kernel ``gn_silu_nhwc``
+     against its plain version at all 33 GroupNorm sites of that engine's
+     forward (14 offset sites), batch 16, float32 and bfloat16, plus the JAX
+     package's three exactness cases, two odd shapes and a near-constant
+     group;
+ 10. serve the four requests: shapes, trims, finiteness, ``gn_silu_nhwc``
+     launches equal to 33 sites x 12 steps x batches, no NCHW launch;
+ 11. serve them again through the plain NHWC version (bf16 and f32) and hold
+     the kernel path against it; hold the packed engine against the plain
+     engine of phases 4-8 in float32 (TF32 off), where the two are one
+     function; one float32 packed forward on the card against the CPU;
+ 12. time the kernel, its plain version and ``F.silu(F.group_norm())`` on
+     the channels-last tensor at the largest site and the largest offset
+     site, beside the byte bound; every site of a forward; the packed serve
+     against the plain-engine serve in turns (plain, packed, packed, plain);
+     peak memory;
+ 13. profile one packed served batch: device busy by kernel, the idle share,
+     and the count of cuDNN's NCHW<->NHWC transposes.
 Then the DiffWave vocoder (SDDM_spectrogram + FusedDiffWave, the committed
 ``artifacts/round5/diffwave`` checkpoint, bf16, DDIM-6):
-  9. the build of the CUDA residual-stack kernel, started in phase 2 beside
+ 14. the build of the CUDA residual-stack kernel, started in phase 2 beside
      the GroupNorm+SiLU build (build time and the ``-Xptxas -v`` summary);
- 10. hold ``diffwave_stack`` against its plain version at the served shape
+ 15. hold ``diffwave_stack`` against its plain version at the served shape
      [8, 16384, 64], L=30, cycle 10, on the checkpoint's stacked weights, in
-     bfloat16 and float32, and at an odd shape and at L < cycle;
- 11. load the checkpoint through ``load_specmodel`` with ``"packed": true``
+     bfloat16 and float32, at an odd shape, at L < cycle, and at C = 32 on
+     seeded weights;
+ 16. load the checkpoint through ``load_specmodel`` with ``"packed": true``
      and serve 8 seeded 16384-sample clips as one batch of raw audio: shape,
      finiteness, 6 stack calls and 180 layer launches;
- 12. serve the same batch through the plain ``diffwave_stack_reference``
+ 17. serve the same batch through the plain ``diffwave_stack_reference``
      with the same weights and noise, in bfloat16 and float32, and hold the
      kernel path against it; one float32 forward on the card against the
      CPU;
- 13. time the kernel, its plain version and the same layers through cuDNN
+ 18. time the kernel, its plain version and the same layers through cuDNN
      ``conv1d`` with CUDA events, beside the bound; time one served batch at
      DDIM-6 and at ancestral T=200; peak device memory;
- 14. profile one DDIM-6 served batch: device busy time by kernel, and the
-     idle share against the unprofiled serve of phase 13.
+ 19. profile one DDIM-6 served batch: device busy time by kernel, and the
+     idle share against the unprofiled serve of phase 18.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing of JAX
@@ -87,6 +111,19 @@ E2E_TOL = {"bfloat16": (5e-3, 2e-2), "float32": (2e-6, 3e-6)}
 # one float32 forward on the card (TF32 off) vs the CPU: the CPU port
 # matches JAX to 1e-3 (tests/test_torch_checkpoint.py); the same bound here.
 CARD_VS_CPU_TOL = 1e-3
+# the packed engine (phases 9-13): served waveforms, NHWC kernel path vs its
+# plain path, same weights and noise stream, as (max |d|, relative L2).  On an
+# H100 80GB HBM3 at 700 W the first run read bf16 2.6e-3 and 4.4e-3, f32
+# 2.0e-6 and 2.3e-6 (the NHWC statistics are summed in three stages, so f32
+# sits further from the plain version than the NCHW kernel's 4.2e-7); each
+# limit is its reading times 4 to 5.  (The first limits, set before any
+# reading, were phase 6's: f32 2e-6 and 3e-6, which that run exceeded by 1%.)
+PACKED_E2E_TOL = {"bfloat16": (1e-2, 2e-2), "float32": (1e-5, 1e-5)}
+# packed engine vs plain engine in float32, TF32 off, same weights and noise
+# (the convolutions sum in other orders): read 1.5e-6 and 2.2e-6, limits x5-7
+# (first limits, before the reading: 1e-4).
+ENGINES_F32_TOL = (1e-5, 1e-5)
+PACKED_SITES, OFFSET_SITES = 33, 14
 
 # the DiffWave vocoder: 8 clips of 16384 samples, DDIM-6 (the quality-preferred
 # few-step recipe of the JAX package's round-5 table), bf16
@@ -98,7 +135,7 @@ BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 # max |d| 1e-4 in float32 and 0.047 in bfloat16 per call and served, rel L2
 # 1e-4 for the float32 served output, 1e-4 card vs CPU).
 # diffwave_stack vs its plain version, per call, on the skip sum of the
-# three cases of phase 10: float32 (max |d|, rel L2), read 1.9e-5 and
+# three cases of phase 15 (C = 64): float32 (max |d|, rel L2), read 1.9e-5 and
 # 1.5e-7 at most.  bfloat16 (max |d| in bf16 ulps of the largest output, rel
 # L2): both sides round at the same points, so they differ where an f32 sum
 # in another order rounds to the neighbouring bf16 value and later layers
@@ -158,32 +195,40 @@ def close_enough(got, want, atol: float, rtol: float):
 
 
 @contextlib.contextmanager
+def routed(module, name: str, replacement):
+    """Point ``module.name`` at ``replacement`` for the duration of the
+    block: a kernel's wrapper at its plain version, which the kernel path is
+    held against."""
+    kept = getattr(module, name)
+    setattr(module, name, replacement)
+    try:
+        yield
+    finally:
+        setattr(module, name, kept)
+
+
 def plain_gn_silu():
-    """Route every GroupNormSiLU module to ``gn_silu_reference``, the plain
-    version the kernel is held against, for the duration of the block."""
+    """Every GroupNormSiLU module of the plain network on ``gn_silu_reference``."""
     from sddm_tpu_torch.models import blocks
-    from sddm_tpu_torch.ops.gn_silu import gn_silu, gn_silu_reference
+    from sddm_tpu_torch.ops.gn_silu import gn_silu_reference
 
-    blocks.gn_silu = gn_silu_reference
-    try:
-        yield
-    finally:
-        blocks.gn_silu = gn_silu
+    return routed(blocks, "gn_silu", gn_silu_reference)
 
 
-@contextlib.contextmanager
+def plain_gn_silu_nhwc():
+    """Every GroupNorm site of the packed engine on ``gn_silu_nhwc_reference``."""
+    from sddm_tpu_torch.models import unet_packed
+    from sddm_tpu_torch.ops.gn_silu import gn_silu_nhwc_reference
+
+    return routed(unet_packed, "gn_silu_nhwc", gn_silu_nhwc_reference)
+
+
 def plain_diffwave_stack():
-    """Route FusedDiffWave's residual stack to ``diffwave_stack_reference``,
-    the plain version the kernel is held against, for the duration of the
-    block."""
+    """FusedDiffWave's residual stack on ``diffwave_stack_reference``."""
     from sddm_tpu_torch.models import diffwave_fused
-    from sddm_tpu_torch.ops.diffwave_stack import diffwave_stack, diffwave_stack_reference
+    from sddm_tpu_torch.ops.diffwave_stack import diffwave_stack_reference
 
-    diffwave_fused.diffwave_stack = diffwave_stack_reference
-    try:
-        yield
-    finally:
-        diffwave_fused.diffwave_stack = diffwave_stack
+    return routed(diffwave_fused, "diffwave_stack", diffwave_stack_reference)
 
 
 def bf16_ulp(v: float) -> float:
@@ -256,7 +301,7 @@ def cudnn_stack(x0, cond, emb_d, wconv, wrs, brs, cycle: int):
     """The same layers as unfused PyTorch calls in DiffWave's NCL layout: the
     dilated and 1x1 convolutions through cuDNN ``conv1d``, the gate and the
     updates as elementwise kernels (``cond`` as ``[L, B, 2C, T]``, weights as
-    ``conv1d`` takes them).  The timing yardstick of phase 13."""
+    ``conv1d`` takes them).  The timing yardstick of phase 18."""
     import torch
     import torch.nn.functional as F
 
@@ -273,9 +318,9 @@ def cudnn_stack(x0, cond, emb_d, wconv, wrs, brs, cycle: int):
 
 
 def vocoder_phases(device, dw_built) -> tuple:
-    """Phases 9-14 (the DiffWave vocoder); returns its kernel record and its
+    """Phases 14-19 (the DiffWave vocoder); returns its kernel record and its
     serve record.  A reading over its limit is marked OVER where it is
-    printed and fails the run once phase 14 has printed its readings."""
+    printed and fails the run once phase 19 has printed its readings."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -288,14 +333,14 @@ def vocoder_phases(device, dw_built) -> tuple:
 
     stack, reference = dw_ops.diffwave_stack, dw_ops.diffwave_stack_reference
 
-    # -- 9. the build, started in phase 2 ------------------------------------
-    log(f"[9] build: {dw_built['path'].name} in {dw_built['seconds']:.2f} s, in parallel "
+    # -- 14. the build, started in phase 2 ------------------------------------
+    log(f"[14] build: {dw_built['path'].name} in {dw_built['seconds']:.2f} s, in parallel "
         f"with gn_silu{' (cached)' if dw_built['cached'] else ''}")
     for line in dw_built["log"].splitlines():
         if any(k in line for k in ("Compiling entry", "Used", "spill", "stack frame")):
             log(f"    ptxas: {line.strip()}")
 
-    # -- 10. kernel vs plain, per call -----------------------------------------
+    # -- 15. kernel vs plain, per call -----------------------------------------
     config = json.loads((VOCODER / "config.json").read_text())
     config["packed"] = True  # the JAX package's switch for the fused engine
     t0 = time.perf_counter()
@@ -310,7 +355,7 @@ def vocoder_phases(device, dw_built) -> tuple:
     spec = model.feature_fn(audio)  # [8, 513, 64]
     gen = torch.Generator(device=device).manual_seed(SEED)
     x_t = torch.randn((DW_CLIPS, 1, DW_SAMPLES), device=device, generator=gen)
-    log(f"[10] diffwave_stack vs diffwave_stack_reference on the checkpoint's stacked "
+    log(f"[15] diffwave_stack vs diffwave_stack_reference on the checkpoint's stacked "
         f"weights (stem of N(0,1) x_t, features of {DW_CLIPS} seeded clips, step 100)")
     per_call = {}
     over = []  # readings over their limits
@@ -342,11 +387,39 @@ def vocoder_phases(device, dw_built) -> tuple:
             log(f"    {label:32s} {name:8s} max|d|={err:.3e} rel_l2={rel:.3e} "
                 f"(tol {tol_abs:.3g}, {tol_rel}) scale {scale:.3f} {'ok' if ok else 'OVER'}")
             if not ok:
-                over.append(f"[10] {label} {name}: max|d| {err}, rel_l2 {rel}")
+                over.append(f"[15] {label} {name}: max|d| {err}, rel_l2 {rel}")
 
-    del full, cases, args, got, want  # phase 13 makes its inputs again
+    # C = 32, the kernel's other build, on seeded weights (no checkpoint has it)
+    g32 = torch.Generator(device=device).manual_seed(SEED + 2)
+    B32, T32, L32, C32 = 2, 1000, 7, 32
+    rand = lambda *shape: torch.randn(shape, device=device, generator=g32)  # noqa: E731
+    c32 = [rand(B32, T32, C32).relu() * 0.5, 0.5 * rand(L32, B32, T32, 2 * C32),
+           0.2 * rand(L32, B32, C32), rand(L32, 3, C32, 2 * C32) / math.sqrt(3 * C32),
+           rand(L32, C32, 2 * C32) / math.sqrt(C32), 0.1 * rand(L32, 1, 2 * C32)]
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        label = f"C=32 B={B32} T={T32} L={L32} cycle 3"
+        args = [a.to(dtype).contiguous() for a in c32]
+        got = stack(*args, cycle=3)
+        torch.cuda.synchronize()
+        want = reference(*args, cycle=3)
+        if got.dtype != dtype or got.shape != args[0].shape or not torch.isfinite(got).all():
+            fail(f"diffwave_stack output at {label} {name}: {got.dtype} {tuple(got.shape)}")
+        err, rel = differences(got, want)
+        per_call[(name, label)] = (err, rel)
+        scale = float(want.float().abs().max())
+        tol_abs, tol_rel = DW_TOL[name]
+        if dtype == torch.bfloat16:
+            tol_abs *= bf16_ulp(scale)
+        ok = err <= tol_abs and rel <= tol_rel
+        log(f"    {label:32s} {name:8s} max|d|={err:.3e} rel_l2={rel:.3e} "
+            f"(tol {tol_abs:.3g}, {tol_rel}) scale {scale:.3f} {'ok' if ok else 'OVER'}")
+        if not ok:
+            over.append(f"[15] {label} {name}: max|d| {err}, rel_l2 {rel}")
 
-    # -- 11. serve -------------------------------------------------------------
+    del full, cases, args, got, want, c32  # phase 18 makes its inputs again
+
+    # -- 16. serve -------------------------------------------------------------
     def serve(m, seed):
         g = torch.Generator(device=device).manual_seed(seed)
         torch.cuda.synchronize()
@@ -363,7 +436,7 @@ def vocoder_phases(device, dw_built) -> tuple:
     calls, layers, gn_calls = stack.launches, stack.layer_launches, gn_silu.launches
     peak = torch.cuda.max_memory_allocated()
     audio_s = DW_CLIPS * DW_SAMPLES / config["sample_rate"]
-    log(f"[11] load_specmodel(steps={DW_STEPS}, ddim=True, packed) {load_s:.2f} s; served "
+    log(f"[16] load_specmodel(steps={DW_STEPS}, ddim=True, packed) {load_s:.2f} s; served "
         f"{DW_CLIPS} x {DW_SAMPLES} samples ({audio_s:.2f} s of audio) from a "
         f"{list(spec.shape)} condition: warm-up {warm_s:.3f} s, timed "
         f"{serve_s:.4f} s (RTF {serve_s / audio_s:.5f}); diffwave_stack calls {calls}, layer "
@@ -374,7 +447,7 @@ def vocoder_phases(device, dw_built) -> tuple:
         fail(f"diffwave_stack ran {calls} calls and {layers} layer launches, expected "
              f"{DW_STEPS} and {DW_STEPS * DW_LAYERS}")
 
-    # -- 12. the same batch through the plain stack ------------------------------
+    # -- 17. the same batch through the plain stack ------------------------------
     net = fused.net
     e2e = {}
     outs = {}
@@ -392,11 +465,11 @@ def vocoder_phases(device, dw_built) -> tuple:
         e2e[name] = {"max_abs": err, "rel_l2": rel, "kernel_s": kernel_s, "plain_s": plain_s}
         tol_abs, tol_rel = DW_E2E_TOL[name]
         ok = err <= tol_abs and rel <= tol_rel
-        log(f"[12] {name}: kernel path vs plain path, same weights and noise: max|d|={err:.3e} "
+        log(f"[17] {name}: kernel path vs plain path, same weights and noise: max|d|={err:.3e} "
             f"rel_l2={rel:.3e} (tol {tol_abs}, {tol_rel}) {'ok' if ok else 'OVER'}; serve "
             f"{kernel_s:.4f} s vs {plain_s:.4f} s")
         if not ok:
-            over.append(f"[12] served {name}: max|d| {err}, rel_l2 {rel}")
+            over.append(f"[17] served {name}: max|d| {err}, rel_l2 {rel}")
     net.dtype = torch.bfloat16
     bf16_vs_f32 = {"kernel": differences(outs["bfloat16"][0], outs["float32"][1]),
                    "plain": differences(outs["bfloat16"][1], outs["float32"][1])}
@@ -419,9 +492,9 @@ def vocoder_phases(device, dw_built) -> tuple:
     log(f"     float32 forward [1, 1, {n_short}], card (kernel) vs CPU (plain DiffWave): "
         f"max|d|={card_cpu_err:.3e} (tol {DW_CARD_VS_CPU_TOL})")
     if not card_cpu_err <= DW_CARD_VS_CPU_TOL:
-        over.append(f"[12] card vs CPU float32 forward: max|d| {card_cpu_err}")
+        over.append(f"[17] card vs CPU float32 forward: max|d| {card_cpu_err}")
 
-    # -- 13. times ----------------------------------------------------------------
+    # -- 18. times ----------------------------------------------------------------
     args = stack_inputs(fused, spec, x_t, 100.0, torch.bfloat16)
     bound_ms, bound_by, n_bytes, n_ops = stack_bound(args)
     x0, cond, emb_d, wconv, wrs, brs = args
@@ -439,7 +512,7 @@ def vocoder_phases(device, dw_built) -> tuple:
     args32 = stack_inputs(fused, spec, x_t, 100.0, torch.float32)
     bound32_ms, bound32_by, _, _ = stack_bound(args32)
     f32_ms = cuda_time_ms(lambda: stack(*args32, cycle=DW_CYCLE), iters=5, warmup=2)
-    log(f"[13] diffwave_stack [{DW_CLIPS},{DW_SAMPLES},64] L={DW_LAYERS} bf16: kernel "
+    log(f"[18] diffwave_stack [{DW_CLIPS},{DW_SAMPLES},64] L={DW_LAYERS} bf16: kernel "
         f"{kernel_ms:.3f} / {kernel_ms2:.3f} ms, plain {plain_ms:.3f} ms, cuDNN conv1d stack "
         f"{cudnn_ms:.3f} ms (vs plain max|d| {cudnn_err:.3e}, rel_l2 {cudnn_rel:.3e}); bound "
         f"{bound_ms:.4f} ms ({bound_by}: {n_bytes} B at 3.35 TB/s, {n_ops:.4g} ops at 989 "
@@ -456,7 +529,7 @@ def vocoder_phases(device, dw_built) -> tuple:
     if anc_layers != DW_ANCESTRAL * DW_LAYERS:
         fail(f"the ancestral serve ran {anc_layers} layer launches")
 
-    # -- 14. profile one DDIM-6 served batch --------------------------------------
+    # -- 19. profile one DDIM-6 served batch --------------------------------------
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
@@ -469,15 +542,15 @@ def vocoder_phases(device, dw_built) -> tuple:
     stack_ms = sum(v for k, v in busy.items() if "layer_bf16" in k)
     idle_share = 1 - busy_ms / (serve_s * 1e3)
     if busy_ms > 0:
-        log(f"[14] profiled DDIM-{DW_STEPS} serve: device busy {busy_ms:.2f} ms, idle share "
-            f"{idle_share:.3f} of the unprofiled serve ({serve_s * 1e3:.2f} ms, phase 11); "
+        log(f"[19] profiled DDIM-{DW_STEPS} serve: device busy {busy_ms:.2f} ms, idle share "
+            f"{idle_share:.3f} of the unprofiled serve ({serve_s * 1e3:.2f} ms, phase 16); "
             f"{1 - busy_ms / prof_wall_ms:.3f} of the profiled wall ({prof_wall_ms:.2f} ms); "
             f"diffwave_stack layers {stack_ms:.2f} ms ({stack_ms / busy_ms:.3f} of busy)")
         for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:12]:
             n_calls = next(e.count for e in device_events if e.key == key)
             log(f"    {ms:9.3f} ms {ms / busy_ms:6.3f} x{n_calls:<5d} {key[:90]}")
     else:
-        log("[14] the profiler saw no device time: breakdown not measured")
+        log("[19] the profiler saw no device time: breakdown not measured")
     if over:
         fail(f"readings over their limits: {over}")
 
@@ -510,6 +583,337 @@ def vocoder_phases(device, dw_built) -> tuple:
         "bf16_vs_f32_plain": bf16_vs_f32, "card_vs_cpu_f32": card_cpu_err, "load_seconds": load_s,
         "profile": {"wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
                     "idle_share": idle_share, "diffwave_stack_ms": stack_ms},
+    }
+    return kernel_record, serve_record
+
+
+def serve_requests(enh, audios, seed: int, device):
+    """One ``enhance_batch`` of ``audios`` with the sampler's generator seeded
+    ``seed``: (outputs, wall seconds, ending in a device synchronise)."""
+    import torch
+
+    enh.generator = torch.Generator(device=device).manual_seed(seed)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = enh.enhance_batch(audios)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start
+
+
+def served_differences(got, want):
+    """(max |d|, relative L2) over lists of served waveforms."""
+    import numpy as np
+
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    rel = math.sqrt(sum(float(np.sum((g - w) ** 2)) for g, w in zip(got, want))
+                    / sum(float(np.sum(w**2)) for w in want))
+    return err, rel
+
+
+def gn_bound(x, param_bytes: int):
+    """(bound ms, "bytes" or "operations", bytes) of one GroupNorm+SiLU call on
+    ``x``: x read once and y written once at 3.35 TB/s, plus ``param_bytes``
+    (the f32 affine; the int32 group map in NHWC), against about ten f32
+    operations per element (sums, affine, SiLU)."""
+    n_bytes = 2 * x.numel() * x.element_size() + param_bytes
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, 10 * x.numel() / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", n_bytes
+
+
+def packed_sites(engine, num_samples: int, device):
+    """[(the _GN module, (H, W, C4))] of one packed forward, in call order."""
+    import torch
+
+    from sddm_tpu_torch.models.unet_packed import _GN
+
+    sites = []
+    hooks = [m.register_forward_pre_hook(lambda m, a: sites.append((m, tuple(a[0].shape[1:]))))
+             for m in engine.modules() if isinstance(m, _GN)]
+    with torch.no_grad(), plain_gn_silu_nhwc():
+        z = torch.zeros(1, 1, num_samples, device=device)
+        engine(z, z, torch.ones(1, 1, 1, device=device))
+    for h in hooks:
+        h.remove()
+    return sites
+
+
+def packed_phases(device, config, net_args, audios, plain_enh, gen) -> tuple:
+    """Phases 9-13 (the packed engine, ``load_enhancer``'s default); returns
+    its kernel record and its serve record.  A reading over its limit is
+    marked OVER where it is printed and fails the run once phase 13 has
+    printed its readings."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sddm_tpu_torch import PackedUNetModified2, load_enhancer
+    from sddm_tpu_torch.models import UNetModified2
+    from sddm_tpu_torch.models.unet_packed import _packed_gn_plan
+    from sddm_tpu_torch.ops.gn_silu import gn_silu, gn_silu_nhwc, gn_silu_nhwc_reference
+    from sddm_tpu_torch.ops.packed import offset_mask
+
+    def mask(h, w, c4, dtype=torch.float32):
+        return torch.from_numpy(offset_mask(h, w, c4 // 4)).to(device, dtype)
+
+    n = config["num_samples"]
+    # -- 9. load_enhancer's default, the packed engine; its kernel at every site --
+    t0 = time.perf_counter()
+    enh = load_enhancer(RUN / "model_best.ckpt", config, batch_rows=BATCH_ROWS, steps=STEPS)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    eng = enh.model.network
+    if not isinstance(eng, PackedUNetModified2):
+        fail(f"load_enhancer served {type(eng).__name__}, not PackedUNetModified2 "
+             f"(fallback: {enh.engine_fallback})")
+    if enh.model.num_timesteps != STEPS or eng.net.dtype != torch.bfloat16:
+        fail("the packed model is not the bf16 ancestral-12 recipe")
+    valid = enh.validate()
+    if not valid:
+        fail("Enhancer.validate() of the packed engine returned False")
+    sites = packed_sites(eng, n, device)
+    n_offset = sum(m.offset for m, _ in sites)
+    if (len(sites), n_offset) != (PACKED_SITES, OFFSET_SITES):
+        fail(f"expected {PACKED_SITES} packed GroupNorm sites ({OFFSET_SITES} offset), found "
+             f"{len(sites)} ({n_offset})")
+    log(f"[9] load_enhancer(steps={STEPS}) -> {type(eng).__name__} in {load_s:.2f} s "
+        f"(packing and the canary included), validate() {valid}; {len(sites)} packed "
+        f"GroupNorm+SiLU sites per forward ({n_offset} offset); gn_silu_nhwc vs "
+        f"gn_silu_nhwc_reference at batch {BATCH_ROWS}")
+
+    def plan(c4, groups, sections):
+        if sections is None:  # identity: the unpacked sites
+            return torch.arange(c4) // (c4 // groups), c4 // groups
+        _, group_of, count = _packed_gn_plan(groups, sections)
+        return torch.as_tensor(group_of), count
+
+    cases = [((BATCH_ROWS,) + hwc, m.groups, m.group_of, m.count, m.offset, 1.0, "site")
+             for m, hwc in sites]
+    for shape, groups, sections, offset, label in (
+            ((2, 9, 5, 32), 4, (8,), True, "TestGnSilu"),
+            ((2, 17, 9, 64), 8, (16,), False, "TestGnSilu"),
+            ((2, 13, 7, 32), 4, (8,), True, "TestGnSilu"),
+            ((3, 11, 7, 36), 3, (9,), True, "odd: C4 % 8, H*W = 77"),
+            ((3, 5, 7, 30), 5, None, False, "odd: C4 % 4, identity"),
+            ((2, 16, 8, 64), 4, (16,), False, "near-constant")):
+        group_of, count = plan(shape[-1], groups, sections)
+        cases.append((shape, groups, group_of.to(torch.int32).to(device), count, offset,
+                      1e-3 if label == "near-constant" else 1.0, label))
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    for shape, groups, group_of, count, offset, spread, label in cases:
+        c4 = shape[-1]
+        sc = (1 + 0.5 * torch.randn(c4, device=device, generator=gen)).contiguous()
+        bi = (0.2 * torch.randn(c4, device=device, generator=gen)).contiguous()
+        x32 = torch.randn(shape, device=device, generator=gen) * 2 * spread
+        x32 += (1000.0 if spread < 1 else 0.3) + 0.5 * torch.randn(
+            c4, device=device, generator=gen)
+        if offset:  # the engine zeroes the out-of-range rows/cols before the GN
+            x32 *= mask(*shape[1:])
+        for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            x = x32.to(dtype).contiguous()
+            got = gn_silu_nhwc(x, sc, bi, group_of, groups, count, offset)
+            torch.cuda.synchronize()
+            want = gn_silu_nhwc_reference(x, sc, bi, group_of, groups, count, offset)
+            if got.dtype != dtype or got.shape != x.shape or not torch.isfinite(got).all():
+                fail(f"gn_silu_nhwc output at {shape} {dtype_name}: dtype {got.dtype}, "
+                     f"finite {bool(torch.isfinite(got).all())}")
+            if not torch.equal(gn_silu_nhwc(x, sc, bi, group_of, groups, count, offset), got):
+                fail(f"gn_silu_nhwc is not deterministic at {shape} {dtype_name}")
+            if spread < 1:  # the clamp case: finite is the check
+                continue
+            ok, err = close_enough(got, want, *TOL[dtype_name])
+            max_err[dtype_name] = max(max_err[dtype_name], err)
+            log(f"    {label:22s} {str(shape):20s} G={groups:<3d} count={count:<3d} "
+                f"{'offset' if offset else 'plain ':6s} {dtype_name:8s} max|d|={err:.3e} "
+                f"{'ok' if ok else 'OVER'}")
+            if not ok:
+                fail(f"gn_silu_nhwc disagrees with its plain version at {shape} {dtype_name}")
+    log(f"    near-constant groups finite; every call repeated bit for bit; max|d| f32 "
+        f"{max_err['float32']:.3e}, bf16 {max_err['bfloat16']:.3e} (atol, rtol {TOL})")
+
+    # -- 10. serve through the packed engine ------------------------------------
+    n_rows = sum(math.ceil(a.size / n) for a in audios)
+    n_batches = math.ceil(n_rows / BATCH_ROWS)
+    audio_s = sum(a.size for a in audios) / config["sample_rate"]
+    _, warm_s = serve_requests(enh, audios, SEED + 1, device)
+    torch.cuda.reset_peak_memory_stats()
+    gn_silu.launches = gn_silu_nhwc.launches = 0
+    served, serve_s = serve_requests(enh, audios, SEED, device)
+    launches, nchw_launches = gn_silu_nhwc.launches, gn_silu.launches
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[10] {type(eng).__name__} served {len(audios)} requests: warm-up {warm_s:.3f} s, timed {serve_s:.3f} s (RTF {serve_s / audio_s:.4f}), "
+        f"gn_silu_nhwc.launches {launches}, gn_silu.launches {nchw_launches}, peak "
+        f"{peak / 2**20:.1f} MiB")
+    for a, y in zip(audios, served):
+        if y.shape != a.shape or not np.isfinite(y).all() or np.abs(y).max() > 1.0:
+            fail(f"packed served output shape {y.shape} for input {a.shape}, "
+                 f"finite {np.isfinite(y).all()}")
+    expected = PACKED_SITES * STEPS * n_batches
+    if launches != expected or nchw_launches != 0:
+        fail(f"gn_silu_nhwc.launches = {launches}, expected {expected} ({PACKED_SITES} sites x "
+             f"{STEPS} steps x {n_batches} batches); gn_silu.launches = {nchw_launches}, "
+             "expected 0")
+
+    # -- 11. the same requests through the plain NHWC version; the two engines ---
+    over = []
+    e2e = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        eng.net.dtype = dtype
+        kernel_out, kernel_s = served, serve_s
+        if dtype != torch.bfloat16:
+            serve_requests(enh, audios, SEED + 1, device)  # cuDNN picks its f32 algorithms
+            kernel_out, kernel_s = serve_requests(enh, audios, SEED, device)
+        with plain_gn_silu_nhwc():
+            plain_out, plain_s = serve_requests(enh, audios, SEED, device)
+        err, rel = served_differences(kernel_out, plain_out)
+        e2e[name] = {"max_abs": err, "rel_l2": rel, "kernel_s": kernel_s, "plain_s": plain_s}
+        tol_abs, tol_rel = PACKED_E2E_TOL[name]
+        ok = err <= tol_abs and rel <= tol_rel
+        log(f"[11] {name}: packed engine, kernel path vs plain path, same weights and noise: "
+            f"max|d|={err:.3e} (tol {tol_abs}) rel_l2={rel:.3e} (tol {tol_rel}) "
+            f"{'ok' if ok else 'OVER'}; serve {kernel_s:.3f} s vs {plain_s:.3f} s")
+        if not ok:
+            over.append(f"[11] served {name}: max|d| {err}, rel_l2 {rel}")
+    packed_f32 = kernel_out  # the float32 kernel path of the loop's last turn
+    plain_net = plain_enh.model.network
+    plain_net.dtype = torch.float32
+    serve_requests(plain_enh, audios, SEED + 1, device)
+    plain_f32, _ = serve_requests(plain_enh, audios, SEED, device)
+    plain_net.dtype = eng.net.dtype = torch.bfloat16
+    engines = served_differences(packed_f32, plain_f32)
+    ok = engines[0] <= ENGINES_F32_TOL[0] and engines[1] <= ENGINES_F32_TOL[1]
+    log(f"     float32, TF32 off: packed engine vs plain engine (NCHW, gn_silu), same weights "
+        f"and noise: max|d|={engines[0]:.3e} rel_l2={engines[1]:.3e} (tol {ENGINES_F32_TOL}) "
+        f"{'ok' if ok else 'OVER'}")
+    if not ok:
+        over.append(f"[11] packed vs plain engine f32: {engines}")
+    rng = np.random.default_rng(SEED)
+    cond = (0.1 * rng.standard_normal((1, 1, n))).astype(np.float32)
+    x_t = (0.8 * cond + 0.3 * rng.standard_normal((1, 1, n))).astype(np.float32)
+    level = np.full((1, 1, 1), 0.95, np.float32)
+    eng.net.dtype = torch.float32
+    with torch.no_grad():
+        on_card = eng(*(torch.from_numpy(a).to(device) for a in (cond, x_t, level)))
+        cpu_net = UNetModified2(num_samples=n, **net_args).eval()
+        cpu_net.load_state_dict({k: v.cpu() for k, v in eng.net.state_dict().items()})
+        on_cpu = cpu_net(*(torch.from_numpy(a) for a in (cond, x_t, level)))
+    eng.net.dtype = torch.bfloat16
+    card_cpu_err = float((on_card.cpu() - on_cpu).abs().max())
+    log(f"     float32 forward, packed engine on the card vs plain network on the CPU: "
+        f"max|d|={card_cpu_err:.3e} (tol {CARD_VS_CPU_TOL})")
+    if not card_cpu_err <= CARD_VS_CPU_TOL:
+        over.append(f"[11] packed card vs CPU float32 forward: {card_cpu_err}")
+
+    # -- 12. times ------------------------------------------------------------------
+    plain_sites = [(m, hwc) for m, hwc in sites if not m.offset]
+    offset_sites = [(m, hwc) for m, hwc in sites if m.offset]
+    timed = {}
+    for label, (m, hwc) in (("largest", max(plain_sites, key=lambda s: math.prod(s[1]))),
+                            ("largest offset", max(offset_sites, key=lambda s: math.prod(s[1])))):
+        shape = (BATCH_ROWS,) + hwc
+        x = torch.randn(shape, device=device, generator=gen).to(torch.bfloat16)
+        if m.offset:
+            x *= mask(*hwc, dtype=x.dtype)
+        sc = (torch.rand(hwc[-1], device=device, generator=gen) + 0.5).contiguous()
+        bi = (torch.randn(hwc[-1], device=device, generator=gen) * 0.1).contiguous()
+        args = (x, sc, bi, m.group_of, m.groups, m.count, m.offset)
+        x_cl = x.permute(0, 3, 1, 2)  # the channels-last NCHW view
+        k_ms = cuda_time_ms(lambda: gn_silu_nhwc(*args))
+        p_ms = cuda_time_ms(lambda: gn_silu_nhwc_reference(*args), iters=20)
+        lib_ms = cuda_time_ms(lambda: F.silu(F.group_norm(x_cl, m.groups, sc.to(x.dtype),
+                                                          bi.to(x.dtype), 1e-5)))
+        k_ms2 = cuda_time_ms(lambda: gn_silu_nhwc(*args))
+        b_ms, b_by, n_bytes = gn_bound(x, 3 * hwc[-1] * 4)
+        timed[label] = {"shape": list(shape), "count": m.count, "offset": m.offset,
+                        "ms": k_ms, "ms_again": k_ms2, "plain_ms": p_ms, "two_call_ms": lib_ms,
+                        "bound_ms": b_ms, "bound_by": b_by}
+        log(f"[12] {label} site {list(shape)} bf16 G={m.groups} count={m.count}"
+            f"{' offset' if m.offset else ''}: kernel {k_ms:.4f} / {k_ms2:.4f} ms, plain "
+            f"{p_ms:.4f} ms, F.silu(F.group_norm()) on the channels-last view {lib_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}: {n_bytes} B at 3.35 TB/s); "
+            f"{n_bytes / k_ms / 1e6:.0f} GB/s")
+    site_ms = []
+    for m, hwc in sites:
+        x = torch.randn((BATCH_ROWS,) + hwc, device=device, generator=gen).to(torch.bfloat16)
+        args = (x, m.scale, m.bias, m.group_of, m.groups, m.count, m.offset)
+        site_ms.append((cuda_time_ms(lambda: gn_silu_nhwc(*args), 20),
+                        cuda_time_ms(lambda: gn_silu_nhwc_reference(*args), 10, 2),
+                        gn_bound(x, 3 * hwc[-1] * 4)[0]))
+    per_forward = [sum(t[i] for t in site_ms) for i in (0, 1, 2)]
+    log(f"     all {len(sites)} sites of one batch-{BATCH_ROWS} forward, one at a time: kernel "
+        f"{per_forward[0]:.3f} ms, plain {per_forward[1]:.3f} ms, bound {per_forward[2]:.4f} ms "
+        f"(largest single site "
+        f"{max(t[0] for t in site_ms):.4f} ms, smallest {min(t[0] for t in site_ms):.4f} ms); "
+        "library_ms null: F.group_norm computes the function only at identity-plan sites, so "
+        "its time is a yardstick of the work, not of the same function")
+    ab = {"plain": [], "packed": []}
+    for which in ("plain", "packed", "packed", "plain"):
+        ab[which].append(serve_requests(plain_enh if which == "plain" else enh, audios, SEED,
+                                        device)[1])
+    log(f"     served batch at ancestral-{STEPS}, in turns: plain engine "
+        f"{ab['plain'][0]:.3f} / {ab['plain'][1]:.3f} s, packed engine {ab['packed'][0]:.3f} / "
+        f"{ab['packed'][1]:.3f} s; packed peak {peak / 2**20:.1f} MiB")
+
+    # -- 13. one packed served batch under the profiler -----------------------------
+    enh.generator = torch.Generator(device=device).manual_seed(SEED)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        enh.enhance_batch(audios)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - start) * 1e3
+    device_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = {e.key: e.self_device_time_total / 1e3 for e in device_events}
+    calls = {e.key: e.count for e in device_events}
+    busy_ms = sum(busy.values())
+    gn_ms = sum(v for k, v in busy.items() if "nhwc_" in k and "cudnn" not in k)
+    transposes = sum(c for k, c in calls.items() if "nchwToNhwc" in k or "nhwcToNchw" in k)
+    idle_share = 1 - busy_ms / (serve_s * 1e3)
+    if busy_ms > 0:
+        log(f"[13] profiled packed serve: device busy {busy_ms:.1f} ms, idle share "
+            f"{idle_share:.3f} of the unprofiled serve ({serve_s * 1e3:.1f} ms, phase 10); "
+            f"{1 - busy_ms / prof_wall_ms:.3f} of the profiled wall ({prof_wall_ms:.1f} ms); "
+            f"gn_silu_nhwc kernels {gn_ms:.2f} ms ({gn_ms / busy_ms:.3f} of busy); cuDNN "
+            f"NCHW<->NHWC transpose launches {transposes}")
+        for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:14]:
+            log(f"    {ms:9.3f} ms {ms / busy_ms:6.3f} x{calls[key]:<5d} {key[:90]}")
+    else:
+        log("[13] the profiler saw no device time: breakdown not measured")
+    if over:
+        fail(f"readings over their limits: {over}")
+
+    big = timed["largest"]
+    kernel_record = {
+        "name": "gn_silu_nhwc",
+        "route": "cuda",
+        "source": "sddm_tpu_torch/csrc/gn_silu.cu",
+        "replaces": "sddm_tpu/experimental/pallas_gn_silu.py:142",
+        "launches": launches,
+        "max_abs_err": max_err["bfloat16"],
+        "max_abs_err_f32": max_err["float32"],
+        "ms": big["ms"],
+        "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"],
+        "bound_by": big["bound_by"],
+        "library_ms": None,
+        "two_call_ms": big["two_call_ms"],
+        "shape": big["shape"],
+        "dtype": "bfloat16",
+        "largest_offset_site": timed["largest offset"],
+        "sites_per_forward_ms": per_forward[0],
+        "plain_sites_per_forward_ms": per_forward[1],
+        "bound_sites_per_forward_ms": per_forward[2],
+    }
+    serve_record = {
+        "engine": type(eng).__name__, "requests": len(audios), "rows": n_rows, "steps": STEPS,
+        "seconds": serve_s, "audio_seconds": audio_s, "peak_bytes": peak, "load_seconds": load_s,
+        "e2e": e2e, "packed_vs_plain_engine_f32": engines, "card_vs_cpu_f32": card_cpu_err,
+        "in_turns_seconds": ab,
+        "profile": {"wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+                    "idle_share": idle_share, "gn_silu_nhwc_ms": gn_ms,
+                    "transpose_launches": transposes},
     }
     return kernel_record, serve_record
 
@@ -626,12 +1030,16 @@ def main() -> int:
             if not ok:
                 fail(f"kernel disagrees with gn_silu_reference at {shape} {dtype_name}")
 
-    # -- 4. load the flagship through the port ------------------------------
+    # -- 4. load the flagship through the port, the plain engine ---------------
     t0 = time.perf_counter()
-    enh = load_enhancer(RUN / "model_best.ckpt", config, batch_rows=BATCH_ROWS, steps=STEPS)
+    enh = load_enhancer(RUN / "model_best.ckpt", config, batch_rows=BATCH_ROWS, steps=STEPS,
+                        packed=False)
     torch.cuda.synchronize()
     net = enh.model.network
-    log(f"[4] load_enhancer(steps={STEPS}) on {enh.device}: {time.perf_counter() - t0:.2f} s, "
+    if type(net) is not UNetModified2:
+        fail(f"load_enhancer(packed=False) served {type(net).__name__}")
+    log(f"[4] load_enhancer(steps={STEPS}, packed=False) on {enh.device}: "
+        f"{time.perf_counter() - t0:.2f} s, "
         f"{sum(p.numel() for p in net.parameters())} params, compute {net.dtype}, "
         f"{enh.model.num_timesteps} steps")
     if enh.model.num_timesteps != STEPS or net.dtype != torch.bfloat16:
@@ -643,12 +1051,7 @@ def main() -> int:
     n_batches = math.ceil(n_rows / BATCH_ROWS)
 
     def serve(seed):
-        enh.generator = torch.Generator(device=device).manual_seed(seed)
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        out = enh.enhance_batch(audios)
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - start
+        return serve_requests(enh, audios, seed, device)
 
     _, warm_s = serve(SEED + 1)  # cuDNN autotuning and allocator warm-up
     torch.cuda.reset_peak_memory_stats()
@@ -681,9 +1084,7 @@ def main() -> int:
         with plain_gn_silu():
             plain_out, plain_s = serve(SEED)
         name = str(dtype).split(".")[-1]
-        err = max(float(np.abs(k - p).max()) for k, p in zip(kernel_out, plain_out))
-        rel = math.sqrt(sum(float(np.sum((k - p) ** 2)) for k, p in zip(kernel_out, plain_out))
-                        / sum(float(np.sum(p**2)) for p in plain_out))
+        err, rel = served_differences(kernel_out, plain_out)
         e2e[name] = {"max_abs": err, "rel_l2": rel, "kernel_s": kernel_s, "plain_s": plain_s}
         tol_abs, tol_rel = E2E_TOL[name]
         log(f"[6] {name}: kernel path vs plain path, same weights and noise: "
@@ -721,28 +1122,26 @@ def main() -> int:
     two_call_ms = cuda_time_ms(lambda: F.silu(F.group_norm(x, g, wt.to(x.dtype),
                                                            bt.to(x.dtype), 1e-5)))
     kernel_ms2 = cuda_time_ms(lambda: gn_silu(x, wt, bt, g))
-    n_el = x.numel()
-    bytes_moved = 2 * n_el * x.element_size() + 2 * c * 4
-    ops = 10 * n_el  # about ten float32 operations per element (sums, affine, SiLU)
-    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-    bound_by = "bytes" if bytes_moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
+    bound_ms, bound_by, bytes_moved = gn_bound(x, 2 * c * 4)
     site_ms = {}
     for (cs, hs, ws), gs in distinct:
         xs = torch.randn((BATCH_ROWS, cs, hs, ws), device=device,
                          generator=gen).to(torch.bfloat16)
         ones, zeros = torch.ones(cs, device=device), torch.zeros(cs, device=device)
         site_ms[(cs, hs, ws, gs)] = (cuda_time_ms(lambda: gn_silu(xs, ones, zeros, gs), 20),
-                                     cuda_time_ms(lambda: gn_silu_reference(xs, ones, zeros, gs), 20))
-    per_forward = [sum(site_ms[chw + (gs,)][i] for chw, gs in sites) for i in (0, 1)]
+                                     cuda_time_ms(lambda: gn_silu_reference(xs, ones, zeros, gs), 20),
+                                     gn_bound(xs, 2 * cs * 4)[0])
+    per_forward = [sum(site_ms[chw + (gs,)][i] for chw, gs in sites) for i in (0, 1, 2)]
     log(f"[7] {shape} bf16 G={g}: kernel {kernel_ms:.4f} / {kernel_ms2:.4f} ms, plain "
         f"{plain_ms:.4f} ms, F.silu(F.group_norm) {two_call_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}: {bytes_moved} B at 3.35 TB/s); "
         f"{bytes_moved / kernel_ms / 1e6:.0f} GB/s")
-    for (cs, hs, ws, gs), (k_ms, p_ms) in site_ms.items():
+    for (cs, hs, ws, gs), (k_ms, p_ms, _) in site_ms.items():
         log(f"    site [{BATCH_ROWS},{cs},{hs},{ws}] G={gs}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
             f"{sites.count(((cs, hs, ws), gs))} per forward")
     log(f"    all {len(sites)} sites of one batch-{BATCH_ROWS} forward: kernel {per_forward[0]:.3f} ms, "
-        f"plain {per_forward[1]:.3f} ms; no single PyTorch call computes GroupNorm+SiLU "
+        f"plain {per_forward[1]:.3f} ms, bound {per_forward[2]:.4f} ms; no single PyTorch call "
+        f"computes GroupNorm+SiLU "
         f"(library_ms null; the two-call time is two_call_ms)")
 
     # -- 8. where the time goes: one served batch under the profiler ----------
@@ -772,6 +1171,7 @@ def main() -> int:
     else:
         log("[8] the profiler saw no device time: breakdown not measured")
 
+    nhwc_record, packed_serve = packed_phases(device, config, net_args, audios, enh, gen)
     dw_record, dw_serve = vocoder_phases(device, dw_built)
 
     record_line = {"kernels": [{
@@ -792,11 +1192,13 @@ def main() -> int:
         "dtype": "bfloat16",
         "sites_per_forward_ms": per_forward[0],
         "plain_sites_per_forward_ms": per_forward[1],
-    }, dw_record], "serve": {"requests": len(audios), "rows": n_rows, "steps": STEPS,
+        "bound_sites_per_forward_ms": per_forward[2],
+    }, nhwc_record, dw_record], "serve": {"requests": len(audios), "rows": n_rows, "steps": STEPS,
                   "seconds": serve_s, "audio_seconds": audio_s, "peak_bytes": peak,
                   "e2e": e2e, "card_vs_cpu_f32": card_cpu_err,
                   "profile": {"wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
                               "idle_share": idle_share, "gn_silu_ms": gn_ms}},
+        "serve_packed": packed_serve,
         "serve_diffwave": dw_serve,
         "build_seconds": {"gn_silu": built["seconds"], "diffwave_stack": dw_built["seconds"]},
         "nvidia_smi": smi}

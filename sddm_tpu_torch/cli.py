@@ -4,6 +4,8 @@ for the networks and composites the port serves)."""
 
 from __future__ import annotations
 
+import inspect
+
 import torch
 
 from .diffusion.schedule import DiffusionSchedule
@@ -11,6 +13,7 @@ from .models.diffwave import DiffWave
 from .models.diffwave_fused import FusedDiffWave
 from .models.sddm import SDDM, SDDM_spectrogram
 from .models.unet_modified2 import UNetModified2
+from .ops.diffwave_stack import CHANNELS as STACK_CHANNELS
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -22,29 +25,60 @@ def build_diffusion(config) -> DiffusionSchedule:
     return DiffusionSchedule.create(**dict(config["diffusion"]["args"]))
 
 
-def build_network(config, num_samples: int | None = None):
+def _accepted(cls, args: dict) -> dict:
+    """``args`` without the keys ``cls.__init__`` does not take, as the JAX
+    package filters a config's args against the module's dataclass fields."""
+    params = inspect.signature(cls.__init__).parameters
+    if any(p.kind is p.VAR_KEYWORD for p in params.values()):
+        return args
+    return {k: v for k, v in args.items() if k in params}
+
+
+def build_network(config, num_samples: int | None = None, device=None):
     """The denoiser: ``UNetModified2`` (which needs ``num_samples``) or
     ``DiffWave``, whose ``freq_bins`` default to the config's spectrogram as
     the root ``test.py`` reads them (``spectrogram.freq_bins``, else
-    ``stft_bins``, else ``mel_spectrogram.n_mels``, else 128).  A top-level
-    ``"dtype": "bfloat16"`` selects bf16 compute (parameters and norm
-    statistics stay float32).  ``"packed": true`` gives
-    DiffWave's fused engine, ``FusedDiffWave``, as in the JAX package; for
-    UNetModified2 it names the JAX package's space-to-depth engine, which
-    computes the same function, and the port serves the plain network."""
+    ``stft_bins``, else ``mel_spectrogram.n_mels``, else 128).  Config args
+    the module does not take are dropped.  A top-level ``"dtype":
+    "bfloat16"`` selects bf16 compute (parameters and norm statistics stay
+    float32).
+
+    ``"packed": true`` gives DiffWave's fused engine, ``FusedDiffWave``, as
+    in the JAX package.  On the CPU it serves any width; its residual-stack
+    kernel takes 32 or 64 residual channels, so other counts are refused
+    here when ``device`` (where the network is to run) is a card.  For
+    UNetModified2 it names
+    the space-to-depth engine, which ``load_enhancer`` serves by default
+    (``PackedUNetModified2``, inference only: dropout must be 0, as the JAX
+    package requires); this returns the plain network it is packed from.
+    The packed training engine of the JAX package is not ported."""
     net_cfg = config["network"]
     args = dict(net_cfg["args"])
     dtype_name = config.get("dtype")
     if dtype_name and "dtype" not in args:
         args["dtype"] = _DTYPES[dtype_name]
+    packed = bool(config.get("packed"))
     if net_cfg["type"] == "UNetModified2":
-        return UNetModified2(num_samples=num_samples, **args)
+        net = UNetModified2(num_samples=num_samples, **_accepted(UNetModified2, args))
+        if packed and net.dropout:
+            raise ValueError('"packed": true serves the packed engine, which is inference-only '
+                             f"and requires dropout=0, got dropout={net.dropout}")
+        return net
     if net_cfg["type"] == "DiffWave":
         spec = config.get("spectrogram", {})
         args.setdefault("freq_bins", spec.get("freq_bins") or spec.get("stft_bins")
                         or config.get("mel_spectrogram", {}).get("n_mels", 128))
-        net = DiffWave(**args)
-        return FusedDiffWave(net) if config.get("packed") else net
+        net = DiffWave(**_accepted(DiffWave, args))
+        if not packed:
+            return net
+        on_card = device is not None and torch.device(device).type == "cuda"
+        if on_card and net.residual_channels not in STACK_CHANNELS:
+            raise ValueError(
+                f'"packed": true serves FusedDiffWave, whose residual-stack kernel takes '
+                f"residual_channels in {STACK_CHANNELS} (at 128 the staged weights exceed "
+                f"an H100 block's shared memory), got {net.residual_channels}; remove the "
+                "flag to serve the plain DiffWave on the card")
+        return FusedDiffWave(net)
     raise KeyError(f"network {net_cfg['type']!r} is not ported; "
                    "available: ['DiffWave', 'UNetModified2']")
 

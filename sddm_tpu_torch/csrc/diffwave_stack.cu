@@ -16,6 +16,10 @@
 // with the rounding points of diffwave_stack_reference, which the plain
 // PyTorch version (sddm_tpu_torch/ops/diffwave_stack.py) transcribes.
 //
+// The kernels are templated on the residual channel count C; C = 32 and 64
+// are built (at C = 128 the staged bf16 weights, 4C x (2C + 8) x 2 bytes,
+// take 264 KB, over a block's 227 KB of shared memory in this design).
+//
 // Bound: memory traffic.  At the served shape (B=8, T=16384, C=64, L=30,
 // bf16) the stack must read cond (L x B x T x 2C, 1.007 GB), read x0 and
 // write the skip sum (16.8 MB each): 0.31 ms at 3.35 TB/s, against 258 GFLOP
@@ -55,8 +59,6 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kC = 64;       // residual channels
-constexpr int kN = 2 * kC;   // gate + filter columns
 constexpr float kRsqrt2 = 0.70710678118654752440f;
 constexpr int kTilesPerBlock = 4;
 
@@ -66,9 +68,17 @@ __device__ __forceinline__ float sigmoidf_(float v) { return 1.0f / (1.0f + expf
 constexpr int kWarps = 4;
 constexpr int kThreadsBf = 32 * kWarps;
 constexpr int kTileBf = 16 * kWarps;  // rows of T per tile
-constexpr int kLdA = kC + 8;          // shared row strides in bf16: 144 B and
-constexpr int kLdW = kN + 8;          // 272 B keep ldmatrix free of bank conflicts
-constexpr int kSmemBf = (3 * kC * kLdW + kC * kLdW + 3 * kTileBf * kLdA) * 2;
+
+// Sizes for C residual channels: N = 2C gate + filter columns; the shared
+// row strides in bf16 (at C = 64, 144 B and 272 B; at C = 32, 80 B and
+// 144 B) keep ldmatrix free of bank conflicts.
+template <int kC>
+struct Dims {
+  static constexpr int kN = 2 * kC;
+  static constexpr int kLdA = kC + 8;
+  static constexpr int kLdW = kN + 8;
+  static constexpr int kSmemBf = (3 * kC * kLdW + kC * kLdW + 3 * kTileBf * kLdA) * 2;
+};
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
@@ -106,6 +116,7 @@ __device__ __forceinline__ float2 bf2_to_f2(uint32_t v) {
 }
 
 // Copy a [rows, kN] bf16 matrix into shared memory with row stride kLdW.
+template <int kN, int kLdW>
 __device__ __forceinline__ void stage_weights(bf16* dst, const bf16* __restrict__ src, int rows) {
   for (int i = threadIdx.x; i < rows * (kN / 8); i += kThreadsBf) {
     const int r = i / (kN / 8), v = i % (kN / 8);
@@ -114,12 +125,14 @@ __device__ __forceinline__ void stage_weights(bf16* dst, const bf16* __restrict_
   }
 }
 
+template <int kC>
 __global__ void __launch_bounds__(kThreadsBf)
     layer_bf16(const bf16* __restrict__ x_in, bf16* __restrict__ x_out,
                bf16* __restrict__ skip, const bf16* __restrict__ cond,
                const bf16* __restrict__ emb, const bf16* __restrict__ wconv,
                const bf16* __restrict__ wrs, const bf16* __restrict__ brs, int T,
                int d, int first, int write_x) {
+  constexpr int kN = Dims<kC>::kN, kLdA = Dims<kC>::kLdA, kLdW = Dims<kC>::kLdW;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sW = reinterpret_cast<bf16*>(smem);  // [3C][kLdW]: wconv_l as K x N
   bf16* sR = sW + 3 * kC * kLdW;             // [C][kLdW]:  wrs_l
@@ -132,8 +145,8 @@ __global__ void __launch_bounds__(kThreadsBf)
   const bf16* eb = emb + (size_t)b * kC;
   const bf16* cb = cond + (size_t)b * T * kN;
 
-  stage_weights(sW, wconv, 3 * kC);
-  stage_weights(sR, wrs, kC);
+  stage_weights<kN, kLdW>(sW, wconv, 3 * kC);
+  stage_weights<kN, kLdW>(sR, wrs, kC);
 
   const int ntiles = (T + kTileBf - 1) / kTileBf;
   const int tile_end = min((int)(blockIdx.x + 1) * kTilesPerBlock, ntiles);
@@ -264,22 +277,28 @@ __global__ void __launch_bounds__(kThreadsBf)
 // ----------------------------------------------------------------- f32 ----
 constexpr int kThreadsF = 256;
 constexpr int kTileF = 32;
-constexpr int kRowsPerThread = kTileF * kN / kThreadsF;  // 16
-constexpr int kSmemF = (3 * kTileF * kC + kTileF * kN + kTileF * kC) * 4;
 
+template <int kC>
+constexpr int smem_f32() { return (3 * kTileF * kC + kTileF * 2 * kC + kTileF * kC) * 4; }
+
+template <int kC>
 __global__ void __launch_bounds__(kThreadsF)
     layer_f32(const float* __restrict__ x_in, float* __restrict__ x_out,
               float* __restrict__ skip, const float* __restrict__ cond,
               const float* __restrict__ emb, const float* __restrict__ wconv,
               const float* __restrict__ wrs, const float* __restrict__ brs, int T,
               int d, int first, int write_x) {
+  constexpr int kN = 2 * kC;
+  constexpr int kRowStep = kThreadsF / kN;             // 2 at C = 64, 4 at C = 32
+  constexpr int kRowsPerThread = kTileF / kRowStep;    // 16 at C = 64, 8 at C = 32
   extern __shared__ __align__(16) unsigned char smem[];
   float* sA = reinterpret_cast<float*>(smem);  // [3][kTileF][C] taps
   float* sY = sA + 3 * kTileF * kC;            // [kTileF][kN] y
   float* sG = sY + kTileF * kN;                // [kTileF][C] gate
 
   const int b = blockIdx.y;
-  // thread -> column n; rows r0 + 2i (a warp shares its rows: shared reads broadcast)
+  // thread -> column n; rows r0 + kRowStep i (a warp shares its rows: shared
+  // reads broadcast)
   const int n = threadIdx.x % kN, r0 = threadIdx.x / kN;
   const float* xb = x_in + (size_t)b * T * kC;
   const float* eb = emb + (size_t)b * kC;
@@ -305,12 +324,12 @@ __global__ void __launch_bounds__(kThreadsF)
         const float w = wconv[(size_t)(k * kC + c) * kN + n];
         const float* a = sA + (k * kTileF + r0) * kC + c;
 #pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i) acc[i] = fmaf(a[2 * i * kC], w, acc[i]);
+        for (int i = 0; i < kRowsPerThread; ++i) acc[i] = fmaf(a[kRowStep * i * kC], w, acc[i]);
       }
     }
 #pragma unroll
     for (int i = 0; i < kRowsPerThread; ++i) {
-      const int r = r0 + 2 * i, t = t0 + r;
+      const int r = r0 + kRowStep * i, t = t0 + r;
       sY[r * kN + n] = acc[i] + (t < T ? cb[(size_t)t * kN + n] : 0.f);
     }
     __syncthreads();
@@ -326,12 +345,12 @@ __global__ void __launch_bounds__(kThreadsF)
       const float w = wrs[(size_t)c * kN + n];
       const float* a = sG + r0 * kC + c;
 #pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) acc[i] = fmaf(a[2 * i * kC], w, acc[i]);
+      for (int i = 0; i < kRowsPerThread; ++i) acc[i] = fmaf(a[kRowStep * i * kC], w, acc[i]);
     }
     const float bn = brs[n];
 #pragma unroll
     for (int i = 0; i < kRowsPerThread; ++i) {
-      const int t = t0 + r0 + 2 * i;
+      const int t = t0 + r0 + kRowStep * i;
       if (t >= T) continue;
       const float v = acc[i] + bn;
       const size_t row = ((size_t)b * T + t) * kC;
@@ -344,7 +363,7 @@ __global__ void __launch_bounds__(kThreadsF)
   }
 }
 
-template <typename Elem, typename Kernel>
+template <typename Elem, int kC, typename Kernel>
 int run_stack(Kernel kernel, int threads, int tile, int smem, const void* x0, void* xa,
               void* xb, void* skip, const void* cond, const void* emb, const void* wconv,
               const void* wrs, const void* brs, int B, int T, int L, int cycle,
@@ -357,6 +376,7 @@ int run_stack(Kernel kernel, int threads, int tile, int smem, const void* x0, vo
   const dim3 grid((unsigned)((ntiles + kTilesPerBlock - 1) / kTilesPerBlock), (unsigned)B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Elem* x_in = static_cast<const Elem*>(x0);
+  constexpr int kN = 2 * kC;
   for (int l = 0; l < L; ++l) {
     Elem* x_out = static_cast<Elem*>(l % 2 == 0 ? xa : xb);
     kernel<<<grid, threads, smem, s>>>(
@@ -378,19 +398,29 @@ int run_stack(Kernel kernel, int threads, int tile, int smem, const void* x0, vo
 
 // x0 [B,T,C], cond [L,B,T,2C], emb [L,B,C], wconv [L,3,C,2C], wrs [L,C,2C],
 // brs [L,2C], all of one dtype and contiguous; xa, xb: [B,T,C] scratch for x;
-// skip: [B,T,C] output.  C must be 64.
+// skip: [B,T,C] output.  C must be 32 or 64.
 extern "C" int diffwave_stack_bf16(const void* x0, void* xa, void* xb, void* skip,
                                    const void* cond, const void* emb, const void* wconv,
                                    const void* wrs, const void* brs, int B, int T, int L,
-                                   int cycle, void* stream) {
-  return run_stack<bf16>(layer_bf16, kThreadsBf, kTileBf, kSmemBf, x0, xa, xb, skip, cond,
-                         emb, wconv, wrs, brs, B, T, L, cycle, stream);
+                                   int cycle, int C, void* stream) {
+  if (C == 64)
+    return run_stack<bf16, 64>(layer_bf16<64>, kThreadsBf, kTileBf, Dims<64>::kSmemBf, x0, xa,
+                               xb, skip, cond, emb, wconv, wrs, brs, B, T, L, cycle, stream);
+  if (C == 32)
+    return run_stack<bf16, 32>(layer_bf16<32>, kThreadsBf, kTileBf, Dims<32>::kSmemBf, x0, xa,
+                               xb, skip, cond, emb, wconv, wrs, brs, B, T, L, cycle, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int diffwave_stack_f32(const void* x0, void* xa, void* xb, void* skip,
                                   const void* cond, const void* emb, const void* wconv,
                                   const void* wrs, const void* brs, int B, int T, int L,
-                                  int cycle, void* stream) {
-  return run_stack<float>(layer_f32, kThreadsF, kTileF, kSmemF, x0, xa, xb, skip, cond,
-                          emb, wconv, wrs, brs, B, T, L, cycle, stream);
+                                  int cycle, int C, void* stream) {
+  if (C == 64)
+    return run_stack<float, 64>(layer_f32<64>, kThreadsF, kTileF, smem_f32<64>(), x0, xa, xb,
+                                skip, cond, emb, wconv, wrs, brs, B, T, L, cycle, stream);
+  if (C == 32)
+    return run_stack<float, 32>(layer_f32<32>, kThreadsF, kTileF, smem_f32<32>(), x0, xa, xb,
+                                skip, cond, emb, wconv, wrs, brs, B, T, L, cycle, stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -3,12 +3,15 @@
 ``Enhancer`` cuts arbitrary-length waveforms into rows of the model's
 training length, pads the rows to a fixed ``batch_rows`` per call, runs the
 reverse sampler and trims each output back to its input's length.
-``load_enhancer`` builds one from a JAX checkpoint and its config.  Both run
-on the card unless the caller asks for the CPU.
+``load_enhancer`` builds one from a JAX checkpoint and its config, serving
+UNetModified2 through the packed engine (``PackedUNetModified2``) by
+default, as the JAX package does.  Both run on the card unless the caller
+asks for the CPU.
 """
 
 from __future__ import annotations
 
+import logging
 from math import ceil
 from typing import List, Sequence
 
@@ -17,6 +20,7 @@ import torch
 
 from .cli import build_arch, build_diffusion, build_network
 from .compat.jax_import import state_dict_from_jax
+from .models.unet_packed import PackedUNetModified2
 from .train.checkpoints import load_checkpoint
 
 
@@ -46,6 +50,20 @@ class Enhancer:
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         self.generator = generator
+        self.engine_fallback = None  # why the loader serves a fallback engine, if it does
+
+    def validate(self) -> bool:
+        """Canary: run the sampler once on a small random condition at the
+        serving shape and check that every output element is finite.  The
+        JAX package's check (``sddm_tpu/enhance.py::Enhancer.validate``):
+        weight-dependent numerical failures can slip past random-init tests,
+        so ``load_enhancer`` runs it once with the checkpoint's weights on the
+        packed engine and serves the plain engine if it fails."""
+        cond = 0.05 * np.random.default_rng(0).standard_normal(
+            (self.batch_rows, 1, self.num_samples)).astype(np.float32)
+        generator = torch.Generator(device=self.device).manual_seed(17)
+        out = self.model.infer(torch.from_numpy(cond).to(self.device), generator)
+        return bool(torch.isfinite(out).all())
 
     def _chunk(self, audio: np.ndarray) -> np.ndarray:
         """[T] -> [n_chunk, 1, num_samples], zero-padded."""
@@ -80,11 +98,20 @@ class Enhancer:
 
 
 def load_enhancer(checkpoint_path, config: dict, batch_rows: int = 16,
-                  steps: int = 0, ddim: bool = False, device=None) -> Enhancer:
+                  steps: int = 0, ddim: bool = False, device=None,
+                  packed: bool = True) -> Enhancer:
     """An ``Enhancer`` for a JAX ``SDDM`` + ``UNetModified2`` checkpoint and
     its config dict.  ``steps=n`` samples over an n-step subsequence of the
     trained schedule, ``ddim=True`` with the DDIM update; the defaults run
-    the full trained-T ancestral sampler.  ``device`` defaults to ``cuda``."""
+    the full trained-T ancestral sampler.  ``device`` defaults to ``cuda``.
+
+    ``packed=True`` (the default) serves through the space-to-depth engine
+    ``PackedUNetModified2``, the same function with NHWC activations, when
+    the network has no dropout.  It is checked once with the checkpoint's
+    weights (:meth:`Enhancer.validate`); on a non-finite output the loader
+    logs a warning and serves the plain network, as the JAX package's
+    ``load_enhancer`` does, and records why on the returned enhancer
+    (``engine_fallback = "canary"``; None when nothing fell back)."""
     device = resolve_device(device)
     net_args = config["network"]["args"]
     network = build_network(config, num_samples=config["num_samples"])
@@ -94,9 +121,25 @@ def load_enhancer(checkpoint_path, config: dict, batch_rows: int = 16,
         res_blocks=net_args["res_blocks"], inner_channel=net_args["inner_channel"],
     ))
     network.to(device).eval()
-    model = build_arch(config, build_diffusion(config), network)
-    if ddim:
-        model = model.with_ddim()
-    if steps:
-        model = model.with_sampling_steps(int(steps))
-    return Enhancer(model, config["num_samples"], batch_rows)
+    diffusion = build_diffusion(config)
+
+    def fewstep(model):
+        if ddim:
+            model = model.with_ddim()
+        return model.with_sampling_steps(int(steps)) if steps else model
+
+    fallback = None
+    if packed and not network.dropout:
+        engine = PackedUNetModified2(network).eval()
+        enhancer = Enhancer(fewstep(build_arch(config, diffusion, engine)),
+                            config["num_samples"], batch_rows)
+        if enhancer.validate():
+            return enhancer
+        logging.getLogger("enhance").warning(
+            "packed-engine canary produced non-finite output with the checkpoint "
+            "weights; serving the plain engine instead")
+        fallback = "canary"
+    enhancer = Enhancer(fewstep(build_arch(config, diffusion, network)), config["num_samples"],
+                        batch_rows)
+    enhancer.engine_fallback = fallback
+    return enhancer

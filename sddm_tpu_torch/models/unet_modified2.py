@@ -40,6 +40,11 @@ class UNetModified2(nn.Module):
         float32)."""
         super().__init__()
         self.num_samples = num_samples
+        self.inner_channel = inner_channel
+        self.norm_groups = norm_groups
+        self.channel_mults = tuple(channel_mults)
+        self.res_blocks = res_blocks
+        self.dropout = dropout
         self.segment_len = segment_len
         self.segment_stride = segment_stride
         self.dtype = dtype

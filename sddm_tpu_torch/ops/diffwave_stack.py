@@ -30,10 +30,10 @@ import torch.nn.functional as F
 from .cuda_build import CSRC, CudaLibrary
 
 SOURCE = CSRC / "diffwave_stack.cu"
-CHANNELS = 64  # the kernel's residual channel count
+CHANNELS = (32, 64)  # the residual channel counts the kernel is built for
 _RSQRT2 = 1.0 / math.sqrt(2.0)
 _LIB = CudaLibrary(SOURCE, {
-    name: [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    name: [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     for name in ("diffwave_stack_f32", "diffwave_stack_bf16")
 })
 
@@ -74,8 +74,8 @@ def _check(x0, cond, emb_d, wconv, wrs, brs, cycle):
         raise ValueError(f"x0 must be [B, T, C], got {tuple(x0.shape)}")
     B, T, C = x0.shape
     L = wconv.shape[0]
-    if C != CHANNELS:
-        raise ValueError(f"the kernel takes C = {CHANNELS} channels, got {C}")
+    if C not in CHANNELS:
+        raise ValueError(f"the kernel takes C in {CHANNELS} channels, got {C}")
     if B == 0 or T == 0 or L == 0 or B > 65535 or L * B * T * 2 * C >= 2**62:
         raise ValueError(f"bad stack shape B={B}, T={T}, L={L}")
     if not 1 <= cycle <= 30:
@@ -103,13 +103,13 @@ def diffwave_stack(x0, cond, emb_d, wconv, wrs, brs, *, cycle: int) -> torch.Ten
     _check(x0, cond, emb_d, wconv, wrs, brs, cycle)
     lib = _LIB.get()
     fn = lib.diffwave_stack_bf16 if x0.dtype == torch.bfloat16 else lib.diffwave_stack_f32
-    B, T, _ = x0.shape
+    B, T, C = x0.shape
     L = wconv.shape[0]
     xa, xb, skip = (torch.empty_like(x0) for _ in range(3))
     with torch.cuda.device(x0.device):
         rc = fn(x0.data_ptr(), xa.data_ptr(), xb.data_ptr(), skip.data_ptr(),
                 cond.data_ptr(), emb_d.data_ptr(), wconv.data_ptr(), wrs.data_ptr(),
-                brs.data_ptr(), B, T, L, cycle,
+                brs.data_ptr(), B, T, L, cycle, C,
                 torch.cuda.current_stream(x0.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"diffwave_stack kernel launch failed: CUDA error {rc}")

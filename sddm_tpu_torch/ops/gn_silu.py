@@ -1,15 +1,20 @@
-"""Fused GroupNorm + SiLU: the CUDA kernel ``csrc/gn_silu.cu`` and its plain
-PyTorch version.
+"""Fused GroupNorm + SiLU: the CUDA kernels of ``csrc/gn_silu.cu`` and their
+plain PyTorch versions, in two layouts.
 
-Counterpart of ``sddm_tpu/experimental/pallas_groupnorm_swish.py``
-(``group_norm_swish``) and of the flax ``GroupNorm`` -> swish prologue of
-``sddm_tpu/models/blocks.py::Block``.  Layout is NCHW: a (batch row, group)
-is one contiguous run of ``C / G * H * W`` values.
+- :func:`gn_silu`, NCHW: counterpart of
+  ``sddm_tpu/experimental/pallas_groupnorm_swish.py`` (``group_norm_swish``)
+  and of the flax ``GroupNorm`` -> swish prologue of
+  ``sddm_tpu/models/blocks.py::Block``.  A (batch row, group) is one
+  contiguous run of ``C / G * H * W`` values.
+- :func:`gn_silu_nhwc`, NHWC ``[B, H, W, C4]``: counterpart of
+  ``sddm_tpu/experimental/pallas_gn_silu.py`` (``gn_silu``), the
+  ``_GN`` -> silu (-> offset mask) chain of the packed engine
+  (``sddm_tpu/models/unet_packed.py``), with a channel -> group map in place
+  of the Pallas kernel's one-hot matrix.
 
-The kernel is compiled at first use with ``nvcc`` into ``_build/`` inside
+The kernels are compiled at first use with ``nvcc`` into ``_build/`` inside
 this package (git-ignored) and loaded with ``ctypes``; a CPU tensor takes
-:func:`gn_silu_reference` instead, a CUDA tensor launches the kernel or
-raises.
+the plain version instead, a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -19,16 +24,22 @@ import ctypes
 import torch
 
 from .cuda_build import CSRC, CudaLibrary
+from .packed import offset_mask
 
 SOURCE = CSRC / "gn_silu.cu"
+_NCHW_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+_NHWC_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+              + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 _LIB = CudaLibrary(SOURCE, {
-    name: [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-    for name in ("gn_silu_f32", "gn_silu_bf16")
+    "gn_silu_f32": _NCHW_ARGS, "gn_silu_bf16": _NCHW_ARGS,
+    "gn_silu_nhwc_f32": _NHWC_ARGS, "gn_silu_nhwc_bf16": _NHWC_ARGS,
 })
+_MAX_CHANNELS, _MAX_GROUPS = 4096, 1024  # the NHWC statistics block's shared memory
+_TARGET_BLOCKS = 1024  # NHWC: about 8 blocks of 256 threads on each of 132 SMs
 
 
 def build() -> dict:
-    """Compile ``csrc/gn_silu.cu`` (see :func:`cuda_build.build`)."""
+    """Compile ``csrc/gn_silu.cu``, both layouts (see :func:`cuda_build.build`)."""
     return _LIB.build()
 
 
@@ -93,3 +104,101 @@ def gn_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 gn_silu.launches = 0
+
+
+def _divisor(h: int, w: int, count: int, offset: bool) -> float:
+    """The statistics' element count per group: the offset grid carries one
+    extra block per spatial axis whose out-of-range entries are zero."""
+    return float(((h - 1) * (w - 1) if offset else h * w) * count)
+
+
+def gn_silu_nhwc_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                           group_of: torch.Tensor, num_groups: int, count: int,
+                           offset: bool = False, eps: float = 1e-5) -> torch.Tensor:
+    """Plain PyTorch transcription of the packed engine's ``_GN`` + silu (+
+    mask): f32 per-channel sums over positions, summed into groups by
+    ``group_of`` (exact 0/1 products, no matmul and so no TF32), ``mean =
+    s1 / n``, ``var = max(s2 / n - mean^2, 0)``, ``((x - mean) * rsqrt(var +
+    eps)) * scale + bias``, ``y * sigmoid(y)``, the offset mask, one cast."""
+    _, h, w, c4 = x.shape
+    n = _divisor(h, w, count, offset)
+    x32 = x.float()
+    onehot = (group_of.long()[:, None] == torch.arange(num_groups, device=x.device)).float()
+    s1 = (x32.sum(dim=(1, 2))[:, :, None] * onehot).sum(1)  # [B, G]
+    s2 = ((x32 * x32).sum(dim=(1, 2))[:, :, None] * onehot).sum(1)
+    mean = s1 / n
+    var = torch.clamp_min(s2 / n - mean * mean, 0.0)
+    mu = mean[:, group_of.long()][:, None, None, :]
+    iv = torch.rsqrt(var + eps)[:, group_of.long()][:, None, None, :]
+    y = (x32 - mu) * iv * scale.float() + bias.float()
+    y = y * torch.sigmoid(y)
+    if offset:
+        y = y * torch.from_numpy(offset_mask(h, w, c4 // 4)).to(x.device)
+    return y.to(x.dtype)
+
+
+def _check_nhwc(x, scale, bias, group_of, num_groups, count, offset):
+    if x.dim() != 4:
+        raise ValueError(f"gn_silu_nhwc takes [B, H, W, C4] input, got shape {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"gn_silu_nhwc takes float32 or bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("gn_silu_nhwc needs a contiguous [B, H, W, C4] input")
+    b, h, w, c4 = x.shape
+    if x.numel() == 0 or not 1 <= num_groups <= min(c4, _MAX_GROUPS) or c4 > _MAX_CHANNELS:
+        raise ValueError(f"bad shape {tuple(x.shape)} for {num_groups} groups (the kernel "
+                         f"takes C4 <= {_MAX_CHANNELS}, G <= {_MAX_GROUPS})")
+    if b > 65535 or h * w >= 2**31 or count < 1:
+        raise ValueError(f"shape {tuple(x.shape)}, count {count} exceed the kernel's sizes")
+    if offset and (c4 % 4 or h < 2 or w < 2):
+        raise ValueError(f"an offset site needs C4 % 4 == 0 and H, W >= 2, got {tuple(x.shape)}")
+    for name, p, dtype in (("scale", scale, torch.float32), ("bias", bias, torch.float32),
+                           ("group_of", group_of, torch.int32)):
+        if p.dtype != dtype or p.shape != (c4,) or not p.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} [{c4}] tensor")
+        if p.device != x.device:
+            raise ValueError(f"{name} is on {p.device}, input on {x.device}")
+
+
+def _slices(b: int, hw: int, c4: int, elem: int) -> int:
+    """Row slices per batch row of the NHWC passes: enough blocks to fill the
+    card (``_TARGET_BLOCKS`` over the batch rows and channel tiles), but at
+    least 32 rows a slice."""
+    vec = 16 // elem if c4 % (16 // elem) == 0 else 1
+    tiles = -(-(c4 // vec) // 256)
+    return max(1, min(-(-_TARGET_BLOCKS // (b * tiles)), hw // 32))
+
+
+def gn_silu_nhwc(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                 group_of: torch.Tensor, num_groups: int, count: int,
+                 offset: bool = False, eps: float = 1e-5) -> torch.Tensor:
+    """SiLU(GroupNorm(x)) (times the offset mask at offset sites) for NHWC
+    ``x`` ``[B, H, W, C4]`` (f32 or bf16) with f32 ``scale`` and ``bias``
+    ``[C4]`` and an int32 channel -> group map ``group_of`` ``[C4]``;
+    ``count`` is the number of channels per group at one position, so a
+    group's statistics divide by ``H * W * count``, or ``(H-1)(W-1) * count``
+    at offset sites.  CUDA tensors run the kernel; ``gn_silu_nhwc.launches``
+    counts its calls."""
+    if x.device.type == "cpu":
+        return gn_silu_nhwc_reference(x, scale, bias, group_of, num_groups, count, offset, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"gn_silu_nhwc runs on cuda or cpu, not {x.device}")
+    _check_nhwc(x, scale, bias, group_of, num_groups, count, offset)
+    lib = _LIB.get()
+    fn = lib.gn_silu_nhwc_bf16 if x.dtype == torch.bfloat16 else lib.gn_silu_nhwc_f32
+    b, h, w, c4 = x.shape
+    s = _slices(b, h * w, c4, x.element_size())
+    work = torch.empty(b * (s + 1) * 2 * c4, dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), group_of.data_ptr(),
+                y.data_ptr(), work.data_ptr(), b, h, w, c4, num_groups, s,
+                _divisor(h, w, count, offset), int(offset), eps,
+                torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"gn_silu_nhwc kernel launch failed: CUDA error {rc}")
+    gn_silu_nhwc.launches += 1
+    return y
+
+
+gn_silu_nhwc.launches = 0

@@ -29,7 +29,7 @@ def load_specmodel(checkpoint_path, config: dict, steps: int = 0, ddim: bool = F
     with the DDIM update; the defaults run the full trained-T ancestral
     sampler."""
     device = resolve_device(device)
-    network = build_network(config)
+    network = build_network(config, device=device)
     net = network.net if isinstance(network, FusedDiffWave) else network
     params = load_checkpoint(checkpoint_path)["params"]
     net.load_state_dict(diffwave_state_dict_from_jax(

@@ -10,10 +10,15 @@ coefficients are below 1, so the chain is held to rtol 1e-4, atol 1e-4.
 Enhancer: the chunking, static row padding and trim are compared with the
 JAX ``Enhancer`` around the same deterministic stand-in model, and
 ``load_enhancer`` is driven end to end on a tiny checkpoint written by the
-JAX package.
+JAX package: through the packed engine, its default, against JAX's
+``load_enhancer`` under shared noise; with ``packed=False``; and with a NaN
+weight, which fails the packed engine's canary and falls back to the plain
+network.
 """
 
 import json
+import logging
+import os
 
 import jax
 import jax.numpy as jnp
@@ -29,7 +34,7 @@ from sddm_tpu.train.checkpoints import save_checkpoint
 from sddm_tpu_torch import enhance as tenh
 from sddm_tpu_torch.compat import state_dict_from_jax
 from sddm_tpu_torch.diffusion import DiffusionSchedule
-from sddm_tpu_torch.models import SDDM, UNetModified2
+from sddm_tpu_torch.models import SDDM, PackedUNetModified2, UNetModified2
 
 NS = 72
 T = 8
@@ -159,3 +164,60 @@ def test_load_enhancer_without_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tenh.load_enhancer("unused.ckpt", CONFIG)
+
+
+def _save(path, params, config):
+    save_checkpoint(path, arch="SDDM", epoch=1, params=params, opt_state={},
+                    monitor_best=0.0, config=config)
+    return path
+
+
+def test_load_enhancer_serves_the_packed_engine_as_jax_does(tmp_path, nets, monkeypatch):
+    """``"packed": true`` serves PackedUNetModified2, as JAX ``load_enhancer``
+    serves its packed engine.  JAX gets the config without the key: with it,
+    its ``build_network`` returns the packed training twin, which
+    ``load_enhancer`` cannot serve (``sddm_tpu/enhance.py:236-237``)."""
+    from sddm_tpu.enhance import load_enhancer as jax_load_enhancer
+    from sddm_tpu.models.unet_packed import PackedUNetModified2 as JaxPacked
+
+    monkeypatch.setenv("SDDM_COMPILE_CACHE", os.environ.get("JAX_COMPILATION_CACHE_DIR",
+                                                            str(tmp_path / "jax_cache")))
+    params = nets[2]
+    path = _save(tmp_path / "model_best.ckpt", params, CONFIG)
+    enh = tenh.load_enhancer(path, json.loads(json.dumps(CONFIG)), batch_rows=2, steps=3,
+                             device="cpu")
+    assert isinstance(enh.model.network, PackedUNetModified2) and enh.engine_fallback is None
+    assert enh.validate()
+    jax_config = {k: v for k, v in CONFIG.items() if k != "packed"}
+    jenh = jax_load_enhancer(path, jax_config, batch_rows=2, steps=3)
+    assert isinstance(jenh.model.network, JaxPacked)
+    rng = np.random.default_rng(4)
+    cond = rng.uniform(-0.5, 0.5, (2, 1, NS)).astype(np.float32)
+    xT = rng.standard_normal(cond.shape).astype(np.float32)
+    step_noises = rng.standard_normal((3,) + cond.shape).astype(np.float32)
+    want = np.asarray(jax.jit(jenh.model.infer)(
+        jenh.params, jax.random.PRNGKey(0), jnp.asarray(cond),
+        noise_stream=(jnp.asarray(xT), jnp.asarray(step_noises))))
+    got = enh.model.infer(torch.from_numpy(cond),
+                          noise_stream=(torch.from_numpy(xT), torch.from_numpy(step_noises)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_load_enhancer_packed_false_serves_the_plain_network(tmp_path, nets):
+    path = _save(tmp_path / "model_best.ckpt", nets[2], CONFIG)
+    enh = tenh.load_enhancer(path, CONFIG, batch_rows=2, steps=2, packed=False, device="cpu")
+    assert type(enh.model.network) is UNetModified2 and enh.engine_fallback is None
+    assert enh.model.num_timesteps == 2
+
+
+def test_load_enhancer_falls_back_when_the_canary_fails(tmp_path, nets, caplog):
+    """A NaN weight makes the packed engine's canary output non-finite: the
+    loader warns and serves the plain network, as JAX's loader does."""
+    params = jax.tree_util.tree_map(np.array, nets[2])
+    params["params"]["Block_0"]["Conv_0"]["bias"][0] = np.nan
+    path = _save(tmp_path / "model_best.ckpt", params, CONFIG)
+    with caplog.at_level(logging.WARNING, logger="enhance"):
+        enh = tenh.load_enhancer(path, CONFIG, batch_rows=2, steps=2, device="cpu")
+    assert type(enh.model.network) is UNetModified2 and enh.engine_fallback == "canary"
+    assert any("canary" in r.getMessage() for r in caplog.records)
+    assert not enh.validate()

@@ -35,7 +35,8 @@ def test_scan_covers_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for expected in ("sddm_tpu_torch/ops/gn_silu.py", "sddm_tpu_torch/enhance.py",
                      "sddm_tpu_torch/train/checkpoints.py", "sddm_tpu_torch/ops/diffwave_stack.py",
-                     "sddm_tpu_torch/specmodel.py", "chip_smoke.py"):
+                     "sddm_tpu_torch/specmodel.py", "sddm_tpu_torch/ops/packed.py",
+                     "sddm_tpu_torch/models/unet_packed.py", "chip_smoke.py"):
         assert expected in names
 
 
