@@ -53,11 +53,16 @@ Then the packed (space-to-depth) engine, ``load_enhancer``'s default:
 Then the DiffWave vocoder (SDDM_spectrogram + FusedDiffWave, the committed
 ``artifacts/round5/diffwave`` checkpoint, bf16, DDIM-6):
  14. the build of the CUDA residual-stack kernel, started in phase 2 beside
-     the GroupNorm+SiLU build (build time and the ``-Xptxas -v`` summary);
+     the GroupNorm+SiLU build (build time, the ``-Xptxas -v`` summary, the
+     Hopper kernel's dynamic shared memory), and the counts of ``HGMMA``
+     (wgmma) and ``UTMALDG`` (TMA load) instructions in the built library's
+     SASS (``cuobjdump``), each of which must be above 0;
  15. hold ``diffwave_stack`` against its plain version at the served shape
      [8, 16384, 64], L=30, cycle 10, on the checkpoint's stacked weights, in
-     bfloat16 and float32, at an odd shape, at L < cycle, and at C = 32 on
-     seeded weights;
+     bfloat16 and float32, at an odd shape, at L < cycle, at B = 1 (fewer
+     tiles than blocks, a ragged last tile, dilations on both sides of the
+     one-window / three-box switch), at d >= T, and at C = 32 on seeded
+     weights; two calls on the same inputs must give the same bits;
  16. load the checkpoint through ``load_specmodel`` with ``"packed": true``
      and serve 8 seeded 16384-sample clips as one batch of raw audio: shape,
      finiteness, 6 stack calls and 180 layer launches;
@@ -66,10 +71,13 @@ Then the DiffWave vocoder (SDDM_spectrogram + FusedDiffWave, the committed
      kernel path against it; one float32 forward on the card against the
      CPU;
  18. time the kernel, its plain version and the same layers through cuDNN
-     ``conv1d`` with CUDA events, beside the bound; time one served batch at
-     DDIM-6 and at ancestral T=200; peak device memory;
- 19. profile one DDIM-6 served batch: device busy time by kernel, and the
-     idle share against the unprofiled serve of phase 18.
+     ``conv1d`` with CUDA events, beside the bound and the per-layer floor
+     (the bytes any one-launch-per-layer design moves: us per layer, GB/s);
+     time one served batch at DDIM-6 and at ancestral T=200; peak memory;
+ 19. profile one DDIM-6 served batch: device busy time by kernel, the stack
+     kernels' share (failing if the stack launched but the profile shows no
+     time under its kernels' names), and the idle share against the
+     unprofiled serve of phase 18.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing of JAX
@@ -129,6 +137,8 @@ PACKED_SITES, OFFSET_SITES = 33, 14
 # few-step recipe of the JAX package's round-5 table), bf16
 DW_CLIPS, DW_SAMPLES, DW_STEPS, DW_ANCESTRAL = 8, 16384, 6, 200
 DW_LAYERS, DW_CYCLE = 30, 10
+# the device kernels of csrc/diffwave_stack.cu, as the profiler names them
+STACK_KERNELS = ("layer_wgmma", "layer_bf16", "layer_f32")
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 # Limits of the vocoder phases, each its reading on an NVIDIA H100 80GB HBM3 at
 # 700 W times 2.5 to 5 (the first limits, set before any reading, were
@@ -297,6 +307,31 @@ def stack_bound(args):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", n_bytes, ops
 
 
+def stack_floor(args):
+    """(floor ms, bytes) of one stack call in any design that launches once
+    per layer: every layer reads cond_l and x and writes the skip sum, every
+    layer but the first reads the skip sum and every layer but the last
+    writes x, each at 3.35 TB/s."""
+    x0, cond = args[0], args[1]
+    L = cond.shape[0]
+    row = x0.numel() * x0.element_size()  # one [B, T, C] array
+    n_bytes = L * (cond[0].numel() * cond.element_size() + 2 * row) + (L - 1) * 2 * row
+    return n_bytes / HBM_BYTES_PER_S * 1e3, n_bytes
+
+
+def sass_counts(library) -> dict:
+    """Counts of the wgmma, TMA load and TMA store instructions in the SASS
+    of a built library (``cuobjdump`` beside ``nvcc``)."""
+    from sddm_tpu_torch.ops.cuda_build import nvcc
+
+    tool = Path(nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "--dump-sass", str(library)], capture_output=True, text=True,
+                         timeout=120)
+    if out.returncode != 0:
+        fail(f"cuobjdump failed on {library}: {out.stderr.strip()[:500]}")
+    return {op: out.stdout.count(op) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+
+
 def cudnn_stack(x0, cond, emb_d, wconv, wrs, brs, cycle: int):
     """The same layers as unfused PyTorch calls in DiffWave's NCL layout: the
     dilated and 1x1 convolutions through cuDNN ``conv1d``, the gate and the
@@ -337,8 +372,14 @@ def vocoder_phases(device, dw_built) -> tuple:
     log(f"[14] build: {dw_built['path'].name} in {dw_built['seconds']:.2f} s, in parallel "
         f"with gn_silu{' (cached)' if dw_built['cached'] else ''}")
     for line in dw_built["log"].splitlines():
-        if any(k in line for k in ("Compiling entry", "Used", "spill", "stack frame")):
+        if any(k in line for k in ("Compiling entry", "Used", "spill", "stack frame", "setmaxnreg",
+                                   "wgmma", "GMMA")):
             log(f"    ptxas: {line.strip()}")
+    sass = sass_counts(dw_built["path"])
+    log(f"    SASS of {dw_built['path'].name}: HGMMA {sass['HGMMA']}, UTMALDG {sass['UTMALDG']}, "
+        f"UTMASTG {sass['UTMASTG']}")
+    if not (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0):
+        fail(f"the stack library issues no wgmma or no TMA load: {sass}")
 
     # -- 15. kernel vs plain, per call -----------------------------------------
     config = json.loads((VOCODER / "config.json").read_text())
@@ -371,10 +412,27 @@ def vocoder_phases(device, dw_built) -> tuple:
                       [a.contiguous() for a in (full[0][:2, :200], full[1][:9, :2, :200],
                                                 full[2][:9, :2], full[3][:9], full[4][:9],
                                                 full[5][:9])], 10))
+        # 16 tiles for 132 blocks, T % 64 = 40, and d = 1..512 on both sides of
+        # the switch from one tap window (2d <= 64) to three tap boxes
+        cases.append(("B=1 T=1000 L=10 cycle 10",
+                      [a.contiguous() for a in (full[0][:1, :1000], full[1][:10, :1, :1000],
+                                                full[2][:10, :1], full[3][:10], full[4][:10],
+                                                full[5][:10])], 10))
+        cases.append(("d>=T B=2 T=100 L=10 cycle 10",
+                      [a.contiguous() for a in (full[0][:2, :100], full[1][:10, :2, :100],
+                                                full[2][:10, :2], full[3][:10], full[4][:10],
+                                                full[5][:10])], 10))
+        # T < 64: the 64-row tap box is longer than the row, all taps pad
+        cases.append(("T<M B=2 T=40 L=10 cycle 10",
+                      [a.contiguous() for a in (full[0][:2, :40], full[1][:10, :2, :40],
+                                                full[2][:10, :2], full[3][:10], full[4][:10],
+                                                full[5][:10])], 10))
         for label, args, cycle in cases:
             got = stack(*args, cycle=cycle)
             torch.cuda.synchronize()
             want = reference(*args, cycle=cycle)
+            if label == "served" and not torch.equal(stack(*args, cycle=cycle), got):
+                fail(f"two diffwave_stack calls on the same {name} inputs gave different bits")
             if got.dtype != dtype or got.shape != args[0].shape or not torch.isfinite(got).all():
                 fail(f"diffwave_stack output at {label} {name}: {got.dtype} {tuple(got.shape)}")
             err, rel = differences(got, want)
@@ -417,6 +475,7 @@ def vocoder_phases(device, dw_built) -> tuple:
         if not ok:
             over.append(f"[15] {label} {name}: max|d| {err}, rel_l2 {rel}")
 
+    log("    served shape, bfloat16 and float32: two calls on the same inputs gave the same bits")
     del full, cases, args, got, want, c32  # phase 18 makes its inputs again
 
     # -- 16. serve -------------------------------------------------------------
@@ -497,6 +556,7 @@ def vocoder_phases(device, dw_built) -> tuple:
     # -- 18. times ----------------------------------------------------------------
     args = stack_inputs(fused, spec, x_t, 100.0, torch.bfloat16)
     bound_ms, bound_by, n_bytes, n_ops = stack_bound(args)
+    floor_ms, floor_bytes = stack_floor(args)
     x0, cond, emb_d, wconv, wrs, brs = args
     cudnn_args = (x0.transpose(1, 2).contiguous(), cond.transpose(2, 3).contiguous(),
                   emb_d, wconv.permute(0, 3, 2, 1).contiguous(),
@@ -518,6 +578,11 @@ def vocoder_phases(device, dw_built) -> tuple:
         f"{bound_ms:.4f} ms ({bound_by}: {n_bytes} B at 3.35 TB/s, {n_ops:.4g} ops at 989 "
         f"TFLOP/s); {n_bytes / kernel_ms / 1e6:.0f} GB/s, {n_ops / kernel_ms / 1e9:.1f} TFLOP/s; "
         f"f32 kernel {f32_ms:.3f} ms (bound {bound32_ms:.3f} ms, {bound32_by})")
+    log(f"     per-layer floor {floor_ms:.4f} ms ({floor_bytes} B: cond, x and the skip sum "
+        f"through memory once a layer) beside the {bound_ms:.4f} ms bound; kernel "
+        f"{kernel_ms / DW_LAYERS * 1e3:.1f} us a layer, {floor_bytes / kernel_ms / 1e6:.0f} GB/s "
+        f"on the floor's bytes ({floor_ms / kernel_ms:.3f} of the floor, "
+        f"{bound_ms / kernel_ms:.3f} of the bound)")
     ancestral = build_arch(config, build_diffusion(config), fused, hop_samples=model.hop_samples,
                            feature_fn=model.feature_fn)
     stack.launches = stack.layer_launches = 0
@@ -531,15 +596,17 @@ def vocoder_phases(device, dw_built) -> tuple:
 
     # -- 19. profile one DDIM-6 served batch --------------------------------------
     torch.cuda.synchronize()
+    stack.layer_launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
         model.infer(audio, torch.Generator(device=device).manual_seed(SEED))
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - start) * 1e3
+    profiled_layers = stack.layer_launches
     device_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = {e.key: e.self_device_time_total / 1e3 for e in device_events}
     busy_ms = sum(busy.values())
-    stack_ms = sum(v for k, v in busy.items() if "layer_bf16" in k)
+    stack_ms = sum(v for k, v in busy.items() if any(n in k for n in STACK_KERNELS))
     idle_share = 1 - busy_ms / (serve_s * 1e3)
     if busy_ms > 0:
         log(f"[19] profiled DDIM-{DW_STEPS} serve: device busy {busy_ms:.2f} ms, idle share "
@@ -551,6 +618,9 @@ def vocoder_phases(device, dw_built) -> tuple:
             log(f"    {ms:9.3f} ms {ms / busy_ms:6.3f} x{n_calls:<5d} {key[:90]}")
     else:
         log("[19] the profiler saw no device time: breakdown not measured")
+    if profiled_layers > 0 and stack_ms == 0:
+        fail(f"the profiled serve ran {profiled_layers} stack layer launches, but no device time "
+             f"under the stack's kernel names {STACK_KERNELS}")
     if over:
         fail(f"readings over their limits: {over}")
 
@@ -575,6 +645,7 @@ def vocoder_phases(device, dw_built) -> tuple:
         "f32_bound_ms": bound32_ms,
         "shape": list(x0.shape) + [DW_LAYERS],
         "dtype": "bfloat16",
+        "sass": sass,
     }
     serve_record = {
         "clips": DW_CLIPS, "samples": DW_SAMPLES, "steps": DW_STEPS, "seconds": serve_s,

@@ -78,6 +78,10 @@ def _check(x0, cond, emb_d, wconv, wrs, brs, cycle):
         raise ValueError(f"the kernel takes C in {CHANNELS} channels, got {C}")
     if B == 0 or T == 0 or L == 0 or B > 65535 or L * B * T * 2 * C >= 2**62:
         raise ValueError(f"bad stack shape B={B}, T={T}, L={L}")
+    # the persistent kernel's TMA coordinates are signed 32-bit (t - d must
+    # fit) and cond's outer stride, B T 2C 2 bytes, must stay below 2**40
+    if T >= 2**30 or B * T >= 2**32:
+        raise ValueError(f"the kernel takes T < 2**30 and B*T < 2**32, got B={B}, T={T}")
     if not 1 <= cycle <= 30:
         raise ValueError(f"cycle must be in [1, 30], got {cycle}")
     want = {"x0": (B, T, C), "cond": (L, B, T, 2 * C), "emb_d": (L, B, C),

@@ -82,7 +82,16 @@ def test_check_refuses_what_the_kernel_does_not_take():
         (1, good[1][:, :, :20].contiguous(), "cond must be"),        # shape
         (3, good[3].to(torch.float64), "wconv is"),                  # dtype
         (4, good[4].transpose(1, 2).contiguous().transpose(1, 2), "contiguous"),
+        (0, good[0][..., :48].contiguous(), r"C in \(32, 64\)"),
+        (0, torch.zeros(2, 40, 128), r"C in \(32, 64\)"),
+        (0, torch.empty(65536, 16, 64, device="meta"), "bad stack shape"),  # grid's B limit
     ]
+    # TMA reads from 16-byte aligned addresses: a contiguous view one element
+    # into its storage is refused
+    for i, t in enumerate(good):
+        view = torch.zeros(t.numel() + 4)[1:t.numel() + 1].view(t.shape)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        bad_cases.append((i, view, "contiguous and 16-byte aligned"))
     for i, tensor, match in bad_cases:
         args = list(good)
         args[i] = tensor
@@ -92,3 +101,24 @@ def test_check_refuses_what_the_kernel_does_not_take():
         _check(*good, 31)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         _check(*(t.double() for t in good), 3)
+
+
+def _meta(B, T, C=64, L=1, dtype=torch.bfloat16):
+    # shapes past the kernel's limits, without memory
+    shapes = [(B, T, C), (L, B, T, 2 * C), (L, B, C), (L, 3, C, 2 * C), (L, C, 2 * C),
+              (L, 1, 2 * C)]
+    return [torch.empty(s, dtype=dtype, device="meta") for s in shapes]
+
+
+@pytest.mark.parametrize("B,T,match", [
+    (1, 2**30, r"T < 2\*\*30"),          # a TMA coordinate t - d must fit in 32 bits
+    (8, 2**29, r"B\*T < 2\*\*32"),       # cond's outer TMA stride below 2**40 bytes
+])
+def test_check_refuses_shapes_past_the_persistent_grid(B, T, match):
+    with pytest.raises(ValueError, match=match):
+        _check(*_meta(B, T), 3)
+
+
+@pytest.mark.parametrize("B,T", [(1, 2**30 - 1), (4, 2**30 - 1), (65535, 64)])
+def test_check_takes_shapes_at_the_limits(B, T):
+    _check(*_meta(B, T), 3)
