@@ -8,7 +8,10 @@ Run from the root of a checkout, with no arguments:
 Phases, each of which exits non-zero when it fails:
   1. the card: name, nvidia-smi name and power limit, versions;
   2. build the CUDA GroupNorm+SiLU kernels (NCHW and NHWC, one source) with
-     nvcc (build time and the ``-Xptxas -v`` summary);
+     nvcc (build time and the ``-Xptxas -v`` summary); the NHWC kernel's
+     grid and dynamic shared memory at the largest packed site, and the
+     count of bulk copies (``UBLKCP``) in the library's SASS (0: the kernel
+     stages x with 16-byte loads and shared stores, not ``cp.async.bulk``);
   3. hold the NCHW kernel against its plain PyTorch version at every
      GroupNorm site of the plain flagship network, batch 16, in float32 and
      bfloat16, plus an odd shape (unaligned path) and a near-constant group
@@ -35,8 +38,11 @@ Then the packed (space-to-depth) engine, ``load_enhancer``'s default:
      hold the NHWC GroupNorm+SiLU(+offset mask) kernel ``gn_silu_nhwc``
      against its plain version at all 33 GroupNorm sites of that engine's
      forward (14 offset sites), batch 16, float32 and bfloat16, plus the JAX
-     package's three exactness cases, two odd shapes and a near-constant
-     group;
+     package's three exactness cases, two odd shapes, a near-constant group,
+     B = 1, B = 200 (blocks loop over several items), the largest site at
+     B = 32 in float32 (the largest share reread past the staging area) and
+     an offset site whose ranges start mid-row; each call's grid plan is
+     printed beside it;
  10. serve the four requests: shapes, trims, finiteness, ``gn_silu_nhwc``
      launches equal to 33 sites x 12 steps x batches, no NCHW launch;
  11. serve them again through the plain NHWC version (bf16 and f32) and hold
@@ -45,11 +51,14 @@ Then the packed (space-to-depth) engine, ``load_enhancer``'s default:
      function; one float32 packed forward on the card against the CPU;
  12. time the kernel, its plain version and ``F.silu(F.group_norm())`` on
      the channels-last tensor at the largest site and the largest offset
-     site, beside the byte bound; every site of a forward; the packed serve
+     site, beside the byte bound; every site of a forward, by CUDA events
+     (back-to-back calls: the host's cost per call included) and by the
+     profiler's device time of the kernel alone; the packed serve
      against the plain-engine serve in turns (plain, packed, packed, plain);
      peak memory;
  13. profile one packed served batch: device busy by kernel, the idle share,
-     and the count of cuDNN's NCHW<->NHWC transposes.
+     and the count of cuDNN's NCHW<->NHWC transposes; the NHWC kernel must
+     show time and one launch per ``gn_silu_nhwc`` call under its name.
 Then the DiffWave vocoder (SDDM_spectrogram + FusedDiffWave, the committed
 ``artifacts/round5/diffwave`` checkpoint, bf16, DDIM-6):
  14. the build of the CUDA residual-stack kernel, started in phase 2 beside
@@ -132,6 +141,8 @@ PACKED_E2E_TOL = {"bfloat16": (1e-2, 2e-2), "float32": (1e-5, 1e-5)}
 # (first limits, before the reading: 1e-4).
 ENGINES_F32_TOL = (1e-5, 1e-5)
 PACKED_SITES, OFFSET_SITES = 33, 14
+# the NHWC kernel of csrc/gn_silu.cu, as the profiler names it
+NHWC_KERNEL = "nhwc_gn_silu"
 
 # the DiffWave vocoder: 8 clips of 16384 samples, DDIM-6 (the quality-preferred
 # few-step recipe of the JAX package's round-5 table), bf16
@@ -226,11 +237,15 @@ def plain_gn_silu():
 
 
 def plain_gn_silu_nhwc():
-    """Every GroupNorm site of the packed engine on ``gn_silu_nhwc_reference``."""
+    """Every GroupNorm site of the packed engine on ``gn_silu_nhwc_reference``
+    (which takes no group-major ``order``: it sums by the one-hot map)."""
     from sddm_tpu_torch.models import unet_packed
     from sddm_tpu_torch.ops.gn_silu import gn_silu_nhwc_reference
 
-    return routed(unet_packed, "gn_silu_nhwc", gn_silu_nhwc_reference)
+    def plain(*args, order=None, **kwargs):
+        return gn_silu_nhwc_reference(*args, **kwargs)
+
+    return routed(unet_packed, "gn_silu_nhwc", plain)
 
 
 def plain_diffwave_stack():
@@ -320,8 +335,8 @@ def stack_floor(args):
 
 
 def sass_counts(library) -> dict:
-    """Counts of the wgmma, TMA load and TMA store instructions in the SASS
-    of a built library (``cuobjdump`` beside ``nvcc``)."""
+    """Counts of the wgmma, TMA load, TMA store and bulk copy instructions in
+    the SASS of a built library (``cuobjdump`` beside ``nvcc``)."""
     from sddm_tpu_torch.ops.cuda_build import nvcc
 
     tool = Path(nvcc()).parent / "cuobjdump"
@@ -329,7 +344,7 @@ def sass_counts(library) -> dict:
                          timeout=120)
     if out.returncode != 0:
         fail(f"cuobjdump failed on {library}: {out.stderr.strip()[:500]}")
-    return {op: out.stdout.count(op) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+    return {op: out.stdout.count(op) for op in ("HGMMA", "UTMALDG", "UTMASTG", "UBLKCP")}
 
 
 def cudnn_stack(x0, cond, emb_d, wconv, wrs, brs, cycle: int):
@@ -722,7 +737,12 @@ def packed_phases(device, config, net_args, audios, plain_enh, gen) -> tuple:
     from sddm_tpu_torch import PackedUNetModified2, load_enhancer
     from sddm_tpu_torch.models import UNetModified2
     from sddm_tpu_torch.models.unet_packed import _packed_gn_plan
-    from sddm_tpu_torch.ops.gn_silu import gn_silu, gn_silu_nhwc, gn_silu_nhwc_reference
+    from sddm_tpu_torch.ops.gn_silu import (
+        gn_silu,
+        gn_silu_nhwc,
+        gn_silu_nhwc_reference,
+        nhwc_plan,
+    )
     from sddm_tpu_torch.ops.packed import offset_mask
 
     def mask(h, w, c4, dtype=torch.float32):
@@ -767,13 +787,23 @@ def packed_phases(device, config, net_args, audios, plain_enh, gen) -> tuple:
             ((2, 13, 7, 32), 4, (8,), True, "TestGnSilu"),
             ((3, 11, 7, 36), 3, (9,), True, "odd: C4 % 8, H*W = 77"),
             ((3, 5, 7, 30), 5, None, False, "odd: C4 % 4, identity"),
-            ((2, 16, 8, 64), 4, (16,), False, "near-constant")):
+            ((2, 16, 8, 64), 4, (16,), False, "near-constant"),
+            ((1, 128, 64, 256), 32, (64,), False, "B = 1"),
+            ((200, 8, 4, 160), 32, None, False, "B = 200: items loop"),
+            ((200, 9, 5, 128), 32, (32,), True, "B = 200: items loop"),
+            ((32, 128, 64, 256), 32, (64,), False, "largest site, B = 32"),
+            ((2, 129, 65, 128), 32, (32,), True, "ranges start mid-row")):
         group_of, count = plan(shape[-1], groups, sections)
         cases.append((shape, groups, group_of.to(torch.int32).to(device), count, offset,
                       1e-3 if label == "near-constant" else 1.0, label))
     max_err = {"float32": 0.0, "bfloat16": 0.0}
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     for shape, groups, group_of, count, offset, spread, label in cases:
         c4 = shape[-1]
+        if label == "ranges start mid-row":
+            p = nhwc_plan(*shape, groups, 2, True, sms)
+            if all(i * p.rows % shape[2] == 0 for i in range(1, p.k)):
+                fail(f"no range of the plan {p} starts mid-row at {shape}")
         sc = (1 + 0.5 * torch.randn(c4, device=device, generator=gen)).contiguous()
         bi = (0.2 * torch.randn(c4, device=device, generator=gen)).contiguous()
         x32 = torch.randn(shape, device=device, generator=gen) * 2 * spread
@@ -795,9 +825,12 @@ def packed_phases(device, config, net_args, audios, plain_enh, gen) -> tuple:
                 continue
             ok, err = close_enough(got, want, *TOL[dtype_name])
             max_err[dtype_name] = max(max_err[dtype_name], err)
+            p = nhwc_plan(*shape, groups, x.element_size(),
+                          c4 % (16 // x.element_size()) == 0, sms)
             log(f"    {label:22s} {str(shape):20s} G={groups:<3d} count={count:<3d} "
                 f"{'offset' if offset else 'plain ':6s} {dtype_name:8s} max|d|={err:.3e} "
-                f"{'ok' if ok else 'OVER'}")
+                f"{'ok' if ok else 'OVER'}  K={p.k} grid={p.grid}x{p.per_block} staged "
+                f"{p.staged}/{p.rows}")
             if not ok:
                 fail(f"gn_silu_nhwc disagrees with its plain version at {shape} {dtype_name}")
     log(f"    near-constant groups finite; every call repeated bit for bit; max|d| f32 "
@@ -891,11 +924,11 @@ def packed_phases(device, config, net_args, audios, plain_enh, gen) -> tuple:
         bi = (torch.randn(hwc[-1], device=device, generator=gen) * 0.1).contiguous()
         args = (x, sc, bi, m.group_of, m.groups, m.count, m.offset)
         x_cl = x.permute(0, 3, 1, 2)  # the channels-last NCHW view
-        k_ms = cuda_time_ms(lambda: gn_silu_nhwc(*args))
+        k_ms = cuda_time_ms(lambda: gn_silu_nhwc(*args, order=m.order))
         p_ms = cuda_time_ms(lambda: gn_silu_nhwc_reference(*args), iters=20)
         lib_ms = cuda_time_ms(lambda: F.silu(F.group_norm(x_cl, m.groups, sc.to(x.dtype),
                                                           bi.to(x.dtype), 1e-5)))
-        k_ms2 = cuda_time_ms(lambda: gn_silu_nhwc(*args))
+        k_ms2 = cuda_time_ms(lambda: gn_silu_nhwc(*args, order=m.order))
         b_ms, b_by, n_bytes = gn_bound(x, 3 * hwc[-1] * 4)
         timed[label] = {"shape": list(shape), "count": m.count, "offset": m.offset,
                         "ms": k_ms, "ms_again": k_ms2, "plain_ms": p_ms, "two_call_ms": lib_ms,
@@ -909,16 +942,44 @@ def packed_phases(device, config, net_args, audios, plain_enh, gen) -> tuple:
     for m, hwc in sites:
         x = torch.randn((BATCH_ROWS,) + hwc, device=device, generator=gen).to(torch.bfloat16)
         args = (x, m.scale, m.bias, m.group_of, m.groups, m.count, m.offset)
-        site_ms.append((cuda_time_ms(lambda: gn_silu_nhwc(*args), 20),
+        site_ms.append((cuda_time_ms(lambda: gn_silu_nhwc(*args, order=m.order), 20),
                         cuda_time_ms(lambda: gn_silu_nhwc_reference(*args), 10, 2),
                         gn_bound(x, 3 * hwc[-1] * 4)[0]))
     per_forward = [sum(t[i] for t in site_ms) for i in (0, 1, 2)]
+    device_us = []  # the kernel alone: the profiler's device time a launch, 5 calls a site
+    for m, hwc in sites:
+        x = torch.randn((BATCH_ROWS,) + hwc, device=device, generator=gen).to(torch.bfloat16)
+        args = (x, m.scale, m.bias, m.group_of, m.groups, m.count, m.offset)
+        for _ in range(3):
+            gn_silu_nhwc(*args, order=m.order)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                gn_silu_nhwc(*args, order=m.order)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and NHWC_KERNEL in e.key]
+        seen = sum(e.count for e in events)  # the profiler may miss a launch at its start
+        if not 1 <= seen <= 5:
+            fail(f"the profiler saw {seen} launches of {NHWC_KERNEL} for 5 calls at {hwc}")
+        plan = nhwc_plan(BATCH_ROWS, *hwc, m.groups, 2, True, sms)
+        device_us.append((sum(e.self_device_time_total for e in events) / seen, hwc, plan,
+                          gn_bound(x, 3 * hwc[-1] * 4)[0] * 1e3))
+    device_ms = sum(t[0] for t in device_us) / 1e3
+    for t_us, hwc, plan, b_us in device_us:
+        log(f"       {str(list(hwc)):16s} K={plan.k:<3d} staged {plan.staged:>4d}/{plan.rows:<4d} "
+            f"device {t_us:6.1f} us, bound {b_us:6.2f} us")
+    reread = [t[0] for t in device_us if t[2].staged < t[2].rows]
     log(f"     all {len(sites)} sites of one batch-{BATCH_ROWS} forward, one at a time: kernel "
         f"{per_forward[0]:.3f} ms, plain {per_forward[1]:.3f} ms, bound {per_forward[2]:.4f} ms "
         f"(largest single site "
         f"{max(t[0] for t in site_ms):.4f} ms, smallest {min(t[0] for t in site_ms):.4f} ms); "
         "library_ms null: F.group_norm computes the function only at identity-plan sites, so "
         "its time is a yardstick of the work, not of the same function")
+    log(f"     the same {len(sites)} sites, device time of {NHWC_KERNEL} alone (profiler, 5 "
+        f"calls a site): {device_ms:.4f} ms a forward ({device_ms / len(sites) * 1e3:.1f} us a site); "
+        f"the {len(reread)} sites that reread what shared memory cannot keep "
+        f"{sum(reread) / 1e3:.4f} ms of it")
     ab = {"plain": [], "packed": []}
     for which in ("plain", "packed", "packed", "plain"):
         ab[which].append(serve_requests(plain_enh if which == "plain" else enh, audios, SEED,
@@ -939,17 +1000,22 @@ def packed_phases(device, config, net_args, audios, plain_enh, gen) -> tuple:
     busy = {e.key: e.self_device_time_total / 1e3 for e in device_events}
     calls = {e.key: e.count for e in device_events}
     busy_ms = sum(busy.values())
-    gn_ms = sum(v for k, v in busy.items() if "nhwc_" in k and "cudnn" not in k)
+    gn_ms = sum(v for k, v in busy.items() if NHWC_KERNEL in k)
+    gn_calls = sum(c for k, c in calls.items() if NHWC_KERNEL in k)
     transposes = sum(c for k, c in calls.items() if "nchwToNhwc" in k or "nhwcToNchw" in k)
     idle_share = 1 - busy_ms / (serve_s * 1e3)
     if busy_ms > 0:
         log(f"[13] profiled packed serve: device busy {busy_ms:.1f} ms, idle share "
             f"{idle_share:.3f} of the unprofiled serve ({serve_s * 1e3:.1f} ms, phase 10); "
             f"{1 - busy_ms / prof_wall_ms:.3f} of the profiled wall ({prof_wall_ms:.1f} ms); "
-            f"gn_silu_nhwc kernels {gn_ms:.2f} ms ({gn_ms / busy_ms:.3f} of busy); cuDNN "
-            f"NCHW<->NHWC transpose launches {transposes}")
+            f"{NHWC_KERNEL} {gn_ms:.2f} ms ({gn_ms / busy_ms:.3f} of busy, x{gn_calls}, "
+            f"{gn_ms / max(gn_calls, 1) * 1e3:.1f} us a call); cuDNN NCHW<->NHWC transpose "
+            f"launches {transposes}")
         for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:14]:
             log(f"    {ms:9.3f} ms {ms / busy_ms:6.3f} x{calls[key]:<5d} {key[:90]}")
+        if not (gn_ms > 0 and gn_calls == launches):
+            fail(f"gn_silu_nhwc launched {launches} times in the served batch, but the profile "
+                 f"shows {gn_calls} launches and {gn_ms} ms under {NHWC_KERNEL}")
     else:
         log("[13] the profiler saw no device time: breakdown not measured")
     if over:
@@ -974,6 +1040,7 @@ def packed_phases(device, config, net_args, audios, plain_enh, gen) -> tuple:
         "dtype": "bfloat16",
         "largest_offset_site": timed["largest offset"],
         "sites_per_forward_ms": per_forward[0],
+        "sites_per_forward_device_ms": device_ms,
         "plain_sites_per_forward_ms": per_forward[1],
         "bound_sites_per_forward_ms": per_forward[2],
     }
@@ -984,6 +1051,7 @@ def packed_phases(device, config, net_args, audios, plain_enh, gen) -> tuple:
         "in_turns_seconds": ab,
         "profile": {"wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
                     "idle_share": idle_share, "gn_silu_nhwc_ms": gn_ms,
+                    "gn_silu_nhwc_profiled_launches": gn_calls,
                     "transpose_launches": transposes},
     }
     return kernel_record, serve_record
@@ -1026,7 +1094,7 @@ def main() -> int:
     from sddm_tpu_torch.models import UNetModified2
     from sddm_tpu_torch.models.blocks import GroupNormSiLU
     from sddm_tpu_torch.ops import diffwave_stack as dw_ops
-    from sddm_tpu_torch.ops.gn_silu import build, gn_silu, gn_silu_reference
+    from sddm_tpu_torch.ops.gn_silu import build, gn_silu, gn_silu_reference, nhwc_plan
 
     if Path(sddm_tpu_torch.__file__).resolve().parent != ROOT / "sddm_tpu_torch":
         fail(f"imported sddm_tpu_torch from {sddm_tpu_torch.__file__}, not {ROOT}")
@@ -1049,6 +1117,13 @@ def main() -> int:
     for line in built["log"].splitlines():
         if any(k in line for k in ("Compiling entry", "Used", "spill", "stack frame")):
             log(f"    ptxas: {line.strip()}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    big = nhwc_plan(BATCH_ROWS, 128, 64, 256, 32, 2, True, sms)
+    log(f"    {NHWC_KERNEL} at the largest packed site [{BATCH_ROWS}, 128, 64, 256] bf16 on "
+        f"{sms} SMs: {big.grid} blocks of 512 threads, {big.smem} bytes of dynamic shared "
+        f"memory each, {big.staged} of {big.rows} positions a block staged")
+    sass = sass_counts(built["path"])
+    log(f"    SASS of {built['path'].name}: UBLKCP (bulk copy) {sass['UBLKCP']}")
 
     # -- 3. kernel vs plain at every flagship site ----------------------------
     config = json.loads((RUN / "config.json").read_text())

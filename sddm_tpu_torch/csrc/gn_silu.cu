@@ -42,32 +42,37 @@
 // Bound: memory traffic again, one read and one write of x: 0.040 ms for the
 // largest flagship site [16, 128, 64, 256] bf16 at 3.35 TB/s.  In NHWC a
 // group is not contiguous: it is a set of channels at every position.  The
-// Pallas kernel carried the per-channel sums in VMEM from one sequential grid
-// step to the next; CUDA blocks run in no order and carry nothing, so the
-// statistics take a reduction across blocks, done in fixed order (sampler
-// trajectories bifurcate on last-bit changes of the statistics, so the same
-// call must give the same bits; no float atomics):
-//   * pass 1 (nhwc_stats): block (slice s, channel tile, batch row b) owns a
-//     slice of rows.  Threads run along channels, 16 bytes each, so a warp
-//     reads contiguous memory; each thread keeps its channels' f32 sums of x
-//     and x^2 in registers, the block folds its row lanes in shared memory
-//     and writes partials [B, S, 2, C4];
-//   * finalize (nhwc_finalize): one block per batch row sums the S partials
-//     in order, combines channels into groups through group_of (a warp per
-//     group, shuffle tree), clamps, takes rsqrt and writes the per-channel
-//     mean and 1/std [B, 2, C4];
-//   * pass 2 (nhwc_norm): the pass-1 geometry again; each thread loads its
-//     channels' statistics, affine and phase bits once, then normalises,
-//     applies SiLU and the mask, rounds and stores its rows.
-// The known cost: pass 2 reads x again (from L2 where it still lies there),
-// and the statistics take a third, small launch.
+// Pallas kernel held a whole batch row in VMEM and carried the per-channel
+// sums from one sequential grid step to the next; CUDA blocks run in no
+// order and a block has 227 KB, so the statistics take a reduction across
+// blocks, done in fixed order (sampler trajectories bifurcate on last-bit
+// changes of the statistics, so the same call must give the same bits; no
+// float atomics).  The design (nhwc_gn_silu) is one cooperative launch of at
+// most one 512-thread block per SM:
+//   * a block owns contiguous ranges of positions (all channels: one span of
+//     memory); it reads its range in 16-byte loads, eight rows a thread in
+//     flight, keeps as much of it in shared memory as fits, sums x and x^2
+//     per channel and writes its partials [B, K, 2, C4];
+//   * one grid barrier; then every block sums its row's K partials in rank
+//     order and the channels of each group over a group-major member list,
+//     so all blocks of a row hold bit-identical statistics;
+//   * it normalises, applies the SiLU (__expf, __fdividef) and the mask,
+//     rounds once and stores; x is read again only where a range outgrows
+//     the shared memory (the six largest sites), and that part is read last
+//     before the barrier and first after it, while it lies in L2.
+// Staging by cp.async.bulk was measured slower in development: the copies
+// land together and leave the sum as a serial tail, while the loads here
+// overlap the sum with the reads.
+// The grid plan (ranges per row, staged positions, shared memory) is
+// computed in ops/gn_silu.py::nhwc_plan and checked by the launcher.
 //
 // C interface, loaded with ctypes: one launcher per type and layout.  Each
 // takes device pointers, the sizes and a cudaStream_t, launches on that
 // stream without synchronising, allocates nothing (the NHWC launchers take a
-// workspace of B * (S + 1) * 2 * C4 floats from the caller), and returns
-// cudaGetLastError().
+// workspace of B * K * 2 * C4 floats from the caller), and returns
+// cudaGetLastError() or the launch's error.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -215,19 +220,67 @@ int launch(const void* x, const void* w, const void* b, void* y, int B, int C,
 
 
 // ------------------------------------------------------------------ NHWC ----
-constexpr int kThreadsN = 256;
+constexpr int kThreadsN = 512;     // one block of 512 threads on each SM
+constexpr int kSmemMaxN = 232448;  // the dynamic shared memory one H100 block may take
+constexpr int kLoadRows = 8;       // rows a thread has in flight while it sums
+constexpr int kOutRows = 4;        // rows a thread has in flight while it normalises
+
+// Shared memory before the staging area, in 4-byte words: the statistics'
+// floats (before the grid barrier [2, P, kThreadsN] row-lane sums, after it
+// [2, C4] channel sums), [2, G] group mean and 1/std, and the group-major
+// channel list [G + 1 + C4]; in bytes rounded up to 128.
+// ops/gn_silu.py::nhwc_fixed_bytes computes the same.
+__host__ __device__ constexpr int nhwc_red_floats(int C4, int P) {
+  return 2 * C4 > 2 * P * kThreadsN ? 2 * C4 : 2 * P * kThreadsN;
+}
+__host__ __device__ constexpr int nhwc_fixed_bytes(int C4, int G, int P) {
+  return ((4 * (nhwc_red_floats(C4, P) + 3 * G + 1 + C4) + 127) / 128) * 128;
+}
+
+// One call's arguments and its grid plan (ops/gn_silu.py::nhwc_plan).
+struct NhwcArgs {
+  const void* x;
+  void* y;
+  const float* scale;
+  const float* bias;
+  const int* group_of;
+  const int* order;  // [G + 1] offsets into the members, then [C4] channels by group
+  float* part;       // [B * K, 2, C4] sums of x and x^2 of each (row, range) item
+  int B, H, W, C4, G;
+  int K;          // ranges (items) per batch row
+  int rows;       // positions per range; the last range of a row may be shorter
+  int staged;     // positions of each item kept in shared memory; the rest is read twice
+  float n, eps;   // the statistics' divisor; GroupNorm's epsilon
+  int offset;     // zero the offset grid's out-of-range rows and columns
+};
+
+// P channels as loaded: a 16-byte pack, or one element; converted at use, so
+// that a load stays in flight until then
+template <typename T, int P>
+struct Raw {
+  using type = Pack<T>;
+};
+template <typename T>
+struct Raw<T, 1> {
+  using type = T;
+};
 
 template <typename T, int P>
-__device__ __forceinline__ void load_vec(const T* p, float (&o)[P]) {
+__device__ __forceinline__ typename Raw<T, P>::type load_raw(const T* p) {
+  return *reinterpret_cast<const typename Raw<T, P>::type*>(p);
+}
+
+template <typename T, int P>
+__device__ __forceinline__ void unpack(const typename Raw<T, P>::type& r, float (&o)[P]) {
   if constexpr (P == 1) {
-    o[0] = to_f32(p[0]);
+    o[0] = to_f32(r);
   } else {
-    const Pack<T> v = *reinterpret_cast<const Pack<T>*>(p);
 #pragma unroll
-    for (int k = 0; k < P; ++k) o[k] = to_f32(v.v[k]);
+    for (int k = 0; k < P; ++k) o[k] = to_f32(r.v[k]);
   }
 }
 
+// a streaming store: y is written once here and read by the next kernel
 template <typename T, int P>
 __device__ __forceinline__ void store_vec(T* p, const float (&o)[P]) {
   if constexpr (P == 1) {
@@ -236,197 +289,330 @@ __device__ __forceinline__ void store_vec(T* p, const float (&o)[P]) {
     Pack<T> v;
 #pragma unroll
     for (int k = 0; k < P; ++k) v.v[k] = from_f32<T>(o[k]);
-    *reinterpret_cast<Pack<T>*>(p) = v;
+    int4 bits;
+    memcpy(&bits, &v, 16);
+    __stcs(reinterpret_cast<int4*>(p), bits);
   }
 }
 
-// Thread geometry shared by both passes: the C4 channels are V vectors of P
-// channels, split into tiles of VT vectors (gridDim.y tiles); thread t runs
-// vector t % VT of its tile over the rows r = t / VT (mod RL) of the block's
-// slice of rows_per_slice rows (gridDim.x slices, gridDim.z batch rows).
-template <typename T, int P>
-__global__ void __launch_bounds__(kThreadsN)
-    nhwc_stats(const T* __restrict__ x, float* __restrict__ part, int HW, int C4, int V,
-               int VT, int RL, int rows_per_slice) {
-  const int s = blockIdx.x, ct = blockIdx.y, b = blockIdx.z, S = gridDim.x;
-  const int vl = threadIdx.x % VT, rl = threadIdx.x / VT, v = ct * VT + vl;
-  float sum[P], sq[P];
-#pragma unroll
-  for (int k = 0; k < P; ++k) sum[k] = sq[k] = 0.f;
-  const int r0 = s * rows_per_slice, r1 = min(HW, r0 + rows_per_slice);
-  if (rl < RL && v < V) {
-    const T* xb = x + (size_t)b * HW * C4 + (size_t)v * P;
-    for (int r = r0 + rl; r < r1; r += RL) {
-      float xv[P];
-      load_vec<T, P>(xb + (size_t)r * C4, xv);
-#pragma unroll
-      for (int k = 0; k < P; ++k) {
-        sum[k] += xv[k];
-        sq[k] += xv[k] * xv[k];
-      }
-    }
-  }
-  __shared__ float red[2][kThreadsN * P];
-  const int nt = VT * P;  // channels of this tile
-  if (rl < RL) {
-#pragma unroll
-    for (int k = 0; k < P; ++k) {
-      red[0][rl * nt + vl * P + k] = sum[k];
-      red[1][rl * nt + vl * P + k] = sq[k];
-    }
-  }
-  __syncthreads();
-  float* pb = part + (size_t)(b * S + s) * 2 * C4;
-  for (int i = threadIdx.x; i < nt; i += kThreadsN) {
-    const int c = ct * nt + i;
-    if (c >= C4) break;
-    float a = 0.f, q = 0.f;
-    for (int j = 0; j < RL; ++j) {
-      a += red[0][j * nt + i];
-      q += red[1][j * nt + i];
-    }
-    pb[c] = a;
-    pb[C4 + c] = q;
-  }
-}
-
-__global__ void __launch_bounds__(kThreadsN)
-    nhwc_finalize(const float* __restrict__ part, const int* __restrict__ group_of,
-                  float* __restrict__ stats, int C4, int G, int S, float n, float eps) {
-  extern __shared__ float sh[];
-  float* cs1 = sh;           // [C4] channel sums of x
-  float* cs2 = sh + C4;      // [C4] channel sums of x^2
-  float* gm = sh + 2 * C4;   // [G] group means
-  float* gi = gm + G;        // [G] group 1/std
-  const int b = blockIdx.x;
-  const float* pb = part + (size_t)b * S * 2 * C4;
-  for (int c = threadIdx.x; c < C4; c += kThreadsN) {
-    float a = 0.f, q = 0.f;
-    for (int s = 0; s < S; ++s) {
-      a += pb[(size_t)s * 2 * C4 + c];
-      q += pb[(size_t)s * 2 * C4 + C4 + c];
-    }
-    cs1[c] = a;
-    cs2[c] = q;
-  }
-  __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int g = warp; g < G; g += kThreadsN / 32) {
-    float a = 0.f, q = 0.f;
-    for (int c = lane; c < C4; c += 32) {
-      if (group_of[c] == g) {
-        a += cs1[c];
-        q += cs2[c];
-      }
-    }
-    a = warp_sum(a);
-    q = warp_sum(q);
-    if (lane == 0) {
-      const float mean = a / n;
-      gm[g] = mean;
-      // __fmul_rn keeps mean^2 rounded on its own, as the plain version
-      // rounds it, instead of contracting the difference into an fma
-      gi[g] = rsqrtf(fmaxf(__fsub_rn(q / n, __fmul_rn(mean, mean)), 0.f) + eps);
-    }
-  }
-  __syncthreads();
-  float* st = stats + (size_t)b * 2 * C4;
-  for (int c = threadIdx.x; c < C4; c += kThreadsN) {
-    const int g = group_of[c];
-    const bool ok = g >= 0 && g < G;
-    st[c] = ok ? gm[g] : __int_as_float(0x7fc00000);
-    st[C4 + c] = ok ? gi[g] : __int_as_float(0x7fc00000);
-  }
-}
-
-template <typename T, int P>
-__global__ void __launch_bounds__(kThreadsN)
-    nhwc_norm(const T* __restrict__ x, const float* __restrict__ stats,
-              const float* __restrict__ scale, const float* __restrict__ bias,
-              T* __restrict__ y, int H, int W, int C4, int V, int VT, int RL,
-              int rows_per_slice, int offset) {
-  const int s = blockIdx.x, ct = blockIdx.y, b = blockIdx.z;
-  const int vl = threadIdx.x % VT, rl = threadIdx.x / VT, v = ct * VT + vl;
-  if (rl >= RL || v >= V) return;
-  const int HW = H * W, c4 = C4 / 4;
-  const float* st = stats + (size_t)b * 2 * C4;
-  float mu[P], iv[P], sc[P], bi[P];
-  unsigned row_bit = 0u, col_bit = 0u;  // phase bits of this thread's channels
+template <int P>
+__device__ __forceinline__ void accumulate(float (&s)[P], float (&q)[P], const float (&v)[P]) {
 #pragma unroll
   for (int k = 0; k < P; ++k) {
-    const int c = v * P + k;
-    mu[k] = st[c];
-    iv[k] = st[C4 + c];
-    sc[k] = scale[c];
-    bi[k] = bias[c];
-    if (offset) {
-      row_bit |= (unsigned)((c / (2 * c4)) & 1) << k;
-      col_bit |= (unsigned)((c / c4) & 1) << k;
-    }
+    s[k] += v[k];
+    q[k] += v[k] * v[k];
   }
-  const int r0 = s * rows_per_slice, r1 = min(HW, r0 + rows_per_slice);
-  const size_t base = (size_t)b * HW * C4 + (size_t)v * P;
-  for (int r = r0 + rl; r < r1; r += RL) {
-    float o[P];
-    load_vec<T, P>(x + base + (size_t)r * C4, o);
-    const int h = r / W, w = r - h * W;
+}
+
+// One launch per call: a cooperative grid of at most one block per SM.  Item
+// i = b * K + k is the contiguous range of positions [k * rows, (k + 1) *
+// rows) of batch row b, all C4 channels; block j takes items j, j + grid, ...
+//   1. the block reads its item (kLoadRows rows in flight a thread), keeps
+//      the first `staged` positions in shared memory, sums x and x^2 per
+//      channel, folds its row lanes in a fixed order and writes the item's
+//      partials; the positions it cannot keep are read last;
+//   2. one grid barrier (cooperative_groups' grid sync);
+//   3. every block of row b sums the row's K partials in rank order, then
+//      per group over the group-major member list: bit-identical statistics
+//      in every block, with no second barrier or launch;
+//   4. it normalises the positions it could not keep first (read again,
+//      largely from L2), then the kept ones from shared memory, and stores y
+//      in 16-byte vectors.
+// Thread geometry: the C4 / P vectors of a position are split into CT tiles
+// of VT vectors; thread t runs vector t % VT of a tile over the rows t / VT
+// (mod RL = kThreadsN / VT) of an item.  A thread reads back from shared
+// memory only what it wrote there.
+template <typename T, int P>
+__global__ void __launch_bounds__(kThreadsN, 1) nhwc_gn_silu(const NhwcArgs a) {
+  using RawT = typename Raw<T, P>::type;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int H = a.H, W = a.W, HW = H * W, C4 = a.C4, G = a.G, K = a.K;
+  const int V = C4 / P, CT = (V + kThreadsN - 1) / kThreadsN, VT = (V + CT - 1) / CT;
+  const int RL = kThreadsN / VT, vl = tid % VT, rl = tid / VT;
+  const int items = a.B * K;
+  float* red = reinterpret_cast<float*>(smem);
+  float* gm = red + nhwc_red_floats(C4, P);
+  float* gi = gm + G;
+  int* ord = reinterpret_cast<int*>(gi + G);
+  T* stage = reinterpret_cast<T*>(smem + nhwc_fixed_bytes(C4, G, P));
+  const T* x = static_cast<const T*>(a.x);
+  T* y = static_cast<T*>(a.y);
+
+  // loaded now, used after the grid barrier: the group-major channel list
+  // and this thread's channels of tile 0 (group, affine, phase bits)
+  for (int i = tid; i < G + 1 + C4; i += kThreadsN) ord[i] = __ldg(a.order + i);
+  int gch[P];
+  float sc[P], bi[P];
+  unsigned row_bit = 0u, col_bit = 0u;
+  auto channels = [&](int ct) {
+    const int v = ct * VT + vl, c4 = C4 / 4;
+    row_bit = col_bit = 0u;
 #pragma unroll
     for (int k = 0; k < P; ++k) {
-      float val = ((o[k] - mu[k]) * iv[k]) * sc[k] + bi[k];
-      val = val / (1.0f + expf(-val));
-      if (offset) {
-        const bool rb = (row_bit >> k) & 1u, cb = (col_bit >> k) & 1u;
-        const float row_ok = ((h == 0 && !rb) || (h == H - 1 && rb)) ? 0.f : 1.f;
-        const float col_ok = ((w == 0 && !cb) || (w == W - 1 && cb)) ? 0.f : 1.f;
-        val = val * row_ok * col_ok;
+      const int c = v * P + k;
+      gch[k] = __ldg(a.group_of + c);
+      sc[k] = __ldg(a.scale + c);
+      bi[k] = __ldg(a.bias + c);
+      if (a.offset) {
+        row_bit |= (unsigned)((c / (2 * c4)) & 1) << k;
+        col_bit |= (unsigned)((c / c4) & 1) << k;
       }
-      o[k] = val;
     }
-    store_vec<T, P>(y + base + (size_t)r * C4, o);
+  };
+  if (rl < RL && vl < V) channels(0);
+
+  // -- 1. sum, keeping the staged positions ------------------------------------
+  int j = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++j) {
+    const int b = item / K, p0 = (item - b * K) * a.rows;
+    const int np = min(HW - p0, a.rows), ns = min(np, a.staged);
+    const T* xi = x + ((size_t)b * HW + p0) * C4;
+    T* st = stage + (size_t)j * a.staged * C4;
+    float* pi = a.part + (size_t)item * 2 * C4;
+    for (int ct = 0; ct < CT; ++ct) {
+      const int v = ct * VT + vl;
+      float s[P], q[P];
+#pragma unroll
+      for (int k = 0; k < P; ++k) s[k] = q[k] = 0.f;
+      if (rl < RL && v < V) {
+        const T* xv = xi + v * P;
+        T* sv = st + v * P;
+        int r = rl;
+        for (; r + (kLoadRows - 1) * RL < np; r += kLoadRows * RL) {
+          RawT t[kLoadRows];
+#pragma unroll
+          for (int u = 0; u < kLoadRows; ++u) t[u] = load_raw<T, P>(xv + (size_t)(r + u * RL) * C4);
+#pragma unroll
+          for (int u = 0; u < kLoadRows; ++u) {
+            if (r + u * RL < ns) *reinterpret_cast<RawT*>(sv + (size_t)(r + u * RL) * C4) = t[u];
+            float f[P];
+            unpack<T, P>(t[u], f);
+            accumulate<P>(s, q, f);
+          }
+        }
+        for (; r < np; r += RL) {
+          const RawT t = load_raw<T, P>(xv + (size_t)r * C4);
+          if (r < ns) *reinterpret_cast<RawT*>(sv + (size_t)r * C4) = t;
+          float f[P];
+          unpack<T, P>(t, f);
+          accumulate<P>(s, q, f);
+        }
+      }
+      // fold the RL row lanes of each (sum, channel) in a fixed order: four
+      // running sums over lanes l = 0, 1, 2, 3 (mod 4), then ((0 + 1) + (2 + 3))
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        red[k * kThreadsN + tid] = s[k];
+        red[(P + k) * kThreadsN + tid] = q[k];
+      }
+      __syncthreads();
+      for (int it = tid; it < 2 * P * VT; it += kThreadsN) {
+        const int i = it % VT, k = (it / VT) % P, sum = it / (VT * P);
+        if (ct * VT + i >= V) continue;
+        const float* col = red + (sum * P + k) * kThreadsN + i;
+        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+        int l = 0;
+        for (; l + 3 < RL; l += 4) {
+          a0 += col[l * VT];
+          a1 += col[(l + 1) * VT];
+          a2 += col[(l + 2) * VT];
+          a3 += col[(l + 3) * VT];
+        }
+        for (; l < RL; ++l) a0 += col[l * VT];
+        pi[sum * C4 + (ct * VT + i) * P + k] = (a0 + a1) + (a2 + a3);
+      }
+      __syncthreads();
+    }
+  }
+
+  // -- 2. every item's partials are written: one grid barrier, or with one
+  // block per batch row (K = 1, the same for every block) the block's own --
+  if (K > 1)
+    cooperative_groups::this_grid().sync();
+  else
+    __syncthreads();
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int dh = RL / W, dw = RL - dh * W;
+  j = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++j) {
+    const int b = item / K, p0 = (item - b * K) * a.rows;
+    const int np = min(HW - p0, a.rows), ns = min(np, a.staged);
+    const size_t base = ((size_t)b * HW + p0) * C4;
+    const T* st = stage + (size_t)j * a.staged * C4;
+
+    // -- 3. the row's statistics: K partials in rank order (loads of eight
+    // ranks in flight at once), then each group over its members --------------
+    const float* pb = a.part + (size_t)b * K * 2 * C4;
+    for (int c = tid; c < C4; c += kThreadsN) {
+      float u1 = 0.f, u2 = 0.f;
+      for (int k0 = 0; k0 < K; k0 += 8) {
+        float l1[8], l2[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const float* pk = pb + (size_t)min(k0 + u, K - 1) * 2 * C4 + c;
+          l1[u] = __ldcg(pk);
+          l2[u] = __ldcg(pk + C4);
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          if (k0 + u < K) {
+            u1 += l1[u];
+            u2 += l2[u];
+          }
+        }
+      }
+      red[c] = u1;
+      red[C4 + c] = u2;
+    }
+    __syncthreads();
+    for (int g = warp; g < G; g += kThreadsN / 32) {
+      float u1 = 0.f, u2 = 0.f;
+      for (int i = ord[g] + lane; i < ord[g + 1]; i += 32) {
+        const int m = ord[G + 1 + i];
+        u1 += red[m];
+        u2 += red[C4 + m];
+      }
+      u1 = warp_sum(u1);
+      u2 = warp_sum(u2);
+      if (lane == 0) {
+        const float mean = u1 / a.n;
+        gm[g] = mean;
+        // __fmul_rn keeps mean^2 rounded on its own, as the plain version
+        // rounds it, instead of contracting the difference into an fma
+        gi[g] = rsqrtf(fmaxf(__fsub_rn(u2 / a.n, __fmul_rn(mean, mean)), 0.f) + a.eps);
+      }
+    }
+    __syncthreads();
+
+    // -- 4. normalise ------------------------------------------------------------
+    for (int ct = 0; ct < CT; ++ct) {
+      const int v = ct * VT + vl;
+      if (rl >= RL || v >= V) continue;
+      if (CT > 1) channels(ct);
+      float mu[P], iv[P];
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        const bool ok = (unsigned)gch[k] < (unsigned)G;
+        mu[k] = ok ? gm[ok ? gch[k] : 0] : __int_as_float(0x7fc00000);
+        iv[k] = ok ? gi[ok ? gch[k] : 0] : __int_as_float(0x7fc00000);
+      }
+      T* yv = y + base + v * P;
+      // y at row r (position p0 + r = (h, w)): affine, SiLU, mask, store
+      auto out = [&](float(&o)[P], int r, int h, int w) {
+        unsigned kill = 0u;
+        if (a.offset) {
+          if (h == 0) kill |= ~row_bit;
+          if (h == H - 1) kill |= row_bit;
+          if (w == 0) kill |= ~col_bit;
+          if (w == W - 1) kill |= col_bit;
+        }
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          float val = ((o[k] - mu[k]) * iv[k]) * sc[k] + bi[k];
+          val = __fdividef(val, 1.0f + __expf(-val));
+          if ((kill >> k) & 1u) val *= 0.f;
+          o[k] = val;
+        }
+        store_vec<T, P>(yv + (size_t)r * C4, o);
+      };
+      // rows [r_begin, r_end) of the item from src, kOutRows at a time
+      auto rows_out = [&](const T* src, int r_begin, int r_end) {
+        int r = r_begin + rl;
+        int h = (p0 + r) / W, w = p0 + r - h * W;
+        for (; r < r_end; r += kOutRows * RL) {
+          RawT t[kOutRows];
+#pragma unroll
+          for (int u = 0; u < kOutRows; ++u)
+            if (r + u * RL < r_end) t[u] = load_raw<T, P>(src + (size_t)(r + u * RL) * C4);
+#pragma unroll
+          for (int u = 0; u < kOutRows; ++u) {
+            if (r + u * RL >= r_end) break;
+            float o[P];
+            unpack<T, P>(t[u], o);
+            out(o, r + u * RL, h, w);
+            w += dw;
+            h += dh;
+            if (w >= W) {
+              w -= W;
+              ++h;
+            }
+          }
+        }
+      };
+      rows_out(x + base + v * P, ns, np);  // read twice: the last read before the barrier
+      rows_out(st + v * P, 0, ns);
+    }
+    __syncthreads();  // red, gm and gi hold the next item's row
   }
 }
 
 template <typename T, int P>
-int launch_nhwc_p(const T* x, const float* scale, const float* bias, const int* group_of,
-                  T* y, float* work, int B, int H, int W, int C4, int G, int S, float n,
-                  int offset, float eps, cudaStream_t stream) {
-  const int HW = H * W, V = C4 / P;
-  const int CT = (V + kThreadsN - 1) / kThreadsN;
-  const int VT = (V + CT - 1) / CT;
-  const int RL = kThreadsN / VT;
-  const int rows = (HW + S - 1) / S;
-  float* part = work;                            // [B, S, 2, C4]
-  float* stats = work + (size_t)B * S * 2 * C4;  // [B, 2, C4]
-  const dim3 grid((unsigned)S, (unsigned)CT, (unsigned)B);
-  nhwc_stats<T, P><<<grid, kThreadsN, 0, stream>>>(x, part, HW, C4, V, VT, RL, rows);
-  nhwc_finalize<<<B, kThreadsN, (2 * C4 + 2 * G) * sizeof(float), stream>>>(
-      part, group_of, stats, C4, G, S, n, eps);
-  nhwc_norm<T, P><<<grid, kThreadsN, 0, stream>>>(x, stats, scale, bias, y, H, W, C4, V, VT,
-                                                   RL, rows, offset);
-  return (int)cudaGetLastError();
+int launch_nhwc_p(const NhwcArgs& a, int grid, int smem, cudaStream_t stream) {
+  const auto kernel = nhwc_gn_silu<T, P>;
+  static bool configured[64] = {};  // per device: the shared-memory ceiling is raised
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev < 0 || dev >= 64)) err = cudaErrorInvalidDevice;
+  if (err == cudaSuccess && !configured[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMaxN);
+    configured[dev] = err == cudaSuccess;
+  }
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreadsN, (size_t)smem);
+  if (err != cudaSuccess) return (int)err;
+  // a cooperative grid must be resident at once, or its barrier never opens
+  if ((int64_t)per_sm * sms < grid) return (int)cudaErrorCooperativeLaunchTooLarge;
+  NhwcArgs args = a;
+  void* params[] = {&args};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3((unsigned)grid),
+                                    dim3(kThreadsN), params, (size_t)smem, stream);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 template <typename T>
 int launch_nhwc(const void* x, const void* scale, const void* bias, const void* group_of,
-                void* y, void* work, int B, int H, int W, int C4, int G, int S, float n,
-                int offset, float eps, void* stream) {
-  // the finalize block holds 2 * C4 + 2 * G floats of shared memory: 40 KB at most
-  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C4 <= 0 || C4 > 4096 || G <= 0 ||
-      G > 1024 || S <= 0 || S > 65535 || !(n > 0.f) || (offset && C4 % 4 != 0) ||
-      (int64_t)H * W > 0x7fffffffLL)
+                const void* order, void* y, void* work, int B, int H, int W, int C4, int G,
+                int K, int rows, int staged, int grid, int smem, float n, int offset, float eps,
+                void* stream) {
+  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C4 <= 0 || C4 > 4096 || G <= 0 || G > 1024 ||
+      !(n > 0.f) || (offset && C4 % 4 != 0) || (int64_t)H * W > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
+  // the plan: K ranges of `rows` positions cover a row, none of them empty;
+  // the grid holds no block without an item
   constexpr int P = 16 / sizeof(T);
   const bool vec = C4 % P == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0;
-  const T* xt = static_cast<const T*>(x);
-  T* yt = static_cast<T*>(y);
-  const float* sc = static_cast<const float*>(scale);
-  const float* bi = static_cast<const float*>(bias);
-  const int* go = static_cast<const int*>(group_of);
-  float* wk = static_cast<float*>(work);
+  const int64_t HW = (int64_t)H * W, items = (int64_t)B * K;
+  if (K < 1 || rows < 1 || (int64_t)(K - 1) * rows >= HW || (int64_t)K * rows < HW ||
+      items > 0x7fffffffLL || grid < 1 || grid > items || staged < 0 || staged > rows)
+    return (int)cudaErrorInvalidValue;
+  const int64_t per_block = (items + grid - 1) / grid;
+  const int64_t want = nhwc_fixed_bytes(C4, G, vec ? P : 1) +
+                       per_block * staged * C4 * (int64_t)sizeof(T);
+  if (smem != want || smem > kSmemMaxN) return (int)cudaErrorInvalidValue;
+  NhwcArgs a;
+  a.x = x;
+  a.y = y;
+  a.scale = static_cast<const float*>(scale);
+  a.bias = static_cast<const float*>(bias);
+  a.group_of = static_cast<const int*>(group_of);
+  a.order = static_cast<const int*>(order);
+  a.part = static_cast<float*>(work);
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  a.C4 = C4;
+  a.G = G;
+  a.K = K;
+  a.rows = rows;
+  a.staged = staged;
+  a.n = n;
+  a.eps = eps;
+  a.offset = offset;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec)
-    return launch_nhwc_p<T, P>(xt, sc, bi, go, yt, wk, B, H, W, C4, G, S, n, offset, eps, s);
-  return launch_nhwc_p<T, 1>(xt, sc, bi, go, yt, wk, B, H, W, C4, G, S, n, offset, eps, s);
+  return vec ? launch_nhwc_p<T, P>(a, grid, smem, s) : launch_nhwc_p<T, 1>(a, grid, smem, s);
 }
 
 }  // namespace
@@ -442,20 +628,25 @@ extern "C" int gn_silu_bf16(const void* x, const void* w, const void* b, void* y
 }
 
 // x, y: [B, H, W, C4]; scale, bias: [C4] f32; group_of: [C4] int32 in [0, G);
-// work: B * (S + 1) * 2 * C4 floats; n: the statistics' divisor; offset != 0
-// zeroes the offset grid's out-of-range rows and columns after the SiLU.
+// order: [G + 1 + C4] int32, the member offsets of each group, then the
+// channels sorted by group; work: B * K * 2 * C4 floats; n: the statistics'
+// divisor; offset != 0 zeroes the offset grid's out-of-range rows and
+// columns after the SiLU.  K, rows, staged, grid and smem are the grid plan
+// of ops/gn_silu.py::nhwc_plan, which the launcher checks.
 extern "C" int gn_silu_nhwc_f32(const void* x, const void* scale, const void* bias,
-                                const void* group_of, void* y, void* work, int B, int H,
-                                int W, int C4, int G, int S, float n, int offset, float eps,
+                                const void* group_of, const void* order, void* y, void* work,
+                                int B, int H, int W, int C4, int G, int K, int rows, int staged,
+                                int grid, int smem, float n, int offset, float eps,
                                 void* stream) {
-  return launch_nhwc<float>(x, scale, bias, group_of, y, work, B, H, W, C4, G, S, n, offset,
-                            eps, stream);
+  return launch_nhwc<float>(x, scale, bias, group_of, order, y, work, B, H, W, C4, G, K, rows,
+                            staged, grid, smem, n, offset, eps, stream);
 }
 
 extern "C" int gn_silu_nhwc_bf16(const void* x, const void* scale, const void* bias,
-                                 const void* group_of, void* y, void* work, int B, int H,
-                                 int W, int C4, int G, int S, float n, int offset, float eps,
+                                 const void* group_of, const void* order, void* y, void* work,
+                                 int B, int H, int W, int C4, int G, int K, int rows, int staged,
+                                 int grid, int smem, float n, int offset, float eps,
                                  void* stream) {
-  return launch_nhwc<__nv_bfloat16>(x, scale, bias, group_of, y, work, B, H, W, C4, G, S, n,
-                                    offset, eps, stream);
+  return launch_nhwc<__nv_bfloat16>(x, scale, bias, group_of, order, y, work, B, H, W, C4, G, K,
+                                    rows, staged, grid, smem, n, offset, eps, stream);
 }

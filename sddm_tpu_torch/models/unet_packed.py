@@ -29,7 +29,7 @@ from torch import nn
 
 from ..ops import packed as pk
 from ..ops.framing import frame_signal, overlap_add
-from ..ops.gn_silu import gn_silu_nhwc
+from ..ops.gn_silu import gn_silu_nhwc, group_order
 from .blocks import Downsample, ResnetBlock
 from .unet_modified2 import UNetModified2
 
@@ -54,7 +54,8 @@ class _GN(nn.Module):
     """GroupNorm -> SiLU (-> offset mask) of one call site, on NHWC input:
     :func:`gn_silu_nhwc` with the site's channel -> group map.  ``scale`` and
     ``bias`` are in the site's channel order; an unpacked site has the
-    identity map (group ``c // (C / G)``)."""
+    identity map (group ``c // (C / G)``).  ``order``, the group-major
+    channel list of the kernel, is built once here (not saved)."""
 
     def __init__(self, scale, bias, group_of, groups: int, count: int, offset: bool = False):
         super().__init__()
@@ -62,10 +63,11 @@ class _GN(nn.Module):
         self.register_buffer("scale", torch.as_tensor(np.asarray(scale, np.float32)))
         self.register_buffer("bias", torch.as_tensor(np.asarray(bias, np.float32)))
         self.register_buffer("group_of", torch.as_tensor(np.asarray(group_of, np.int32)))
+        self.register_buffer("order", group_order(self.group_of, groups), persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return gn_silu_nhwc(x, self.scale, self.bias, self.group_of, self.groups,
-                            self.count, self.offset, self.eps)
+                            self.count, self.offset, self.eps, order=self.order)
 
 
 # -- the flax-named weight tree of the port's plain network ---------------------

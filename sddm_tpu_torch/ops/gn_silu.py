@@ -10,7 +10,8 @@ plain PyTorch versions, in two layouts.
   ``sddm_tpu/experimental/pallas_gn_silu.py`` (``gn_silu``), the
   ``_GN`` -> silu (-> offset mask) chain of the packed engine
   (``sddm_tpu/models/unet_packed.py``), with a channel -> group map in place
-  of the Pallas kernel's one-hot matrix.
+  of the Pallas kernel's one-hot matrix.  One cooperative launch per call;
+  its grid plan is :func:`nhwc_plan`.
 
 The kernels are compiled at first use with ``nvcc`` into ``_build/`` inside
 this package (git-ignored) and loaded with ``ctypes``; a CPU tensor takes
@@ -20,6 +21,8 @@ the plain version instead, a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -28,14 +31,17 @@ from .packed import offset_mask
 
 SOURCE = CSRC / "gn_silu.cu"
 _NCHW_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-_NHWC_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+_NHWC_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
               + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 _LIB = CudaLibrary(SOURCE, {
     "gn_silu_f32": _NCHW_ARGS, "gn_silu_bf16": _NCHW_ARGS,
     "gn_silu_nhwc_f32": _NHWC_ARGS, "gn_silu_nhwc_bf16": _NHWC_ARGS,
 })
-_MAX_CHANNELS, _MAX_GROUPS = 4096, 1024  # the NHWC statistics block's shared memory
-_TARGET_BLOCKS = 1024  # NHWC: about 8 blocks of 256 threads on each of 132 SMs
+_MAX_CHANNELS, _MAX_GROUPS = 4096, 1024  # the NHWC statistics' shared memory
+# The NHWC kernel's constants (csrc/gn_silu.cu: kThreadsN, kSmemMaxN): one block
+# of 512 threads per SM, 227 KB of shared memory a block.
+_THREADS_N, _SMEM_MAX = 512, 232448
+_MIN_RANGE_BYTES = 16384  # a range of positions is split no finer than this
 
 
 def build() -> dict:
@@ -160,43 +166,120 @@ def _check_nhwc(x, scale, bias, group_of, num_groups, count, offset):
             raise ValueError(f"{name} is on {p.device}, input on {x.device}")
 
 
-def _slices(b: int, hw: int, c4: int, elem: int) -> int:
-    """Row slices per batch row of the NHWC passes: enough blocks to fill the
-    card (``_TARGET_BLOCKS`` over the batch rows and channel tiles), but at
-    least 32 rows a slice."""
-    vec = 16 // elem if c4 % (16 // elem) == 0 else 1
-    tiles = -(-(c4 // vec) // 256)
-    return max(1, min(-(-_TARGET_BLOCKS // (b * tiles)), hw // 32))
+class NhwcPlan(NamedTuple):
+    """The grid of one :func:`gn_silu_nhwc` launch (``csrc/gn_silu.cu``,
+    ``nhwc_gn_silu``): item ``b * k + i`` is positions ``[i * rows, (i + 1) *
+    rows)`` of batch row ``b`` (the last range of a row may be shorter);
+    block ``j`` of ``grid`` takes items ``j, j + grid, ...``; the first
+    ``staged`` positions of each item are kept in shared memory between the
+    two halves of the kernel, the rest is read twice."""
+
+    k: int          # ranges per batch row
+    rows: int       # positions per range
+    staged: int     # positions of each item kept in shared memory
+    grid: int       # blocks launched, all resident at once
+    per_block: int  # items of the busiest block
+    smem: int       # dynamic shared memory of a block, bytes
+    work: int       # float32 workspace: [B * k, 2, C4] partial sums
+
+
+def nhwc_fixed_bytes(c4: int, groups: int, pack: int) -> int:
+    """Shared memory before the staging area (``nhwc_fixed_bytes`` in the
+    source), in bytes rounded up to 128: the statistics' floats (``2 *
+    pack`` row-lane sums a thread before the grid barrier, ``2 * C4``
+    channel sums after it), ``2 * G`` group statistics and the group-major
+    channel list of ``G + 1 + C4`` ints."""
+    words = max(2 * c4, 2 * pack * _THREADS_N) + 3 * groups + 1 + c4
+    return -(-4 * words // 128) * 128
+
+
+@functools.lru_cache(maxsize=512)
+def nhwc_plan(b: int, h: int, w: int, c4: int, groups: int, elem: int, vec: bool,
+              sms: int) -> NhwcPlan:
+    """The grid plan of one NHWC call on a card of ``sms`` SMs with one
+    block resident on each: ``k`` ranges per row, as many as the card has
+    blocks per row but none under ``_MIN_RANGE_BYTES``; each item's first
+    positions kept, up to the block's shared memory; the grid no larger
+    than ``sms``, so the cooperative launch fits.  ``vec``: the kernel
+    moves 16-byte packs of channels (else one element at a time)."""
+    hw, row_bytes = h * w, c4 * elem
+    k = max(1, min(sms // b, -(-hw * row_bytes // _MIN_RANGE_BYTES), hw))
+    rows = -(-hw // k)
+    k = -(-hw // rows)  # no empty range
+    items = b * k
+    grid = min(items, sms)
+    per_block = -(-items // grid)
+    fixed = nhwc_fixed_bytes(c4, groups, 16 // elem if vec else 1)
+    staged = min(rows, (_SMEM_MAX - fixed) // (per_block * row_bytes))
+    return NhwcPlan(k, rows, staged, grid, per_block,
+                    fixed + per_block * staged * row_bytes, items * 2 * c4)
+
+
+def group_order(group_of: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """The group-major channel list :func:`gn_silu_nhwc`'s kernel sums each
+    group over: int32 ``[G + 1 + C4]``, the offset of each group's members,
+    then the channels sorted by group (ascending within a group).  Channels
+    whose group is out of range come last and belong to no group.  Built
+    with tensor operations on ``group_of``'s device, without a host sync."""
+    g = group_of.long()
+    key = torch.where((g >= 0) & (g < num_groups), g, torch.full_like(g, num_groups))
+    members = torch.sort(key, stable=True).indices
+    counts = torch.zeros(num_groups + 1, dtype=torch.long, device=g.device)
+    counts.scatter_add_(0, key, torch.ones_like(key))
+    offsets = torch.cat([counts.new_zeros(1), counts[:num_groups].cumsum(0)])
+    return torch.cat([offsets, members]).to(torch.int32)
+
+
+_SMS = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SMS[index]
 
 
 def gn_silu_nhwc(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                  group_of: torch.Tensor, num_groups: int, count: int,
-                 offset: bool = False, eps: float = 1e-5) -> torch.Tensor:
+                 offset: bool = False, eps: float = 1e-5,
+                 order: Optional[torch.Tensor] = None) -> torch.Tensor:
     """SiLU(GroupNorm(x)) (times the offset mask at offset sites) for NHWC
     ``x`` ``[B, H, W, C4]`` (f32 or bf16) with f32 ``scale`` and ``bias``
     ``[C4]`` and an int32 channel -> group map ``group_of`` ``[C4]``;
     ``count`` is the number of channels per group at one position, so a
     group's statistics divide by ``H * W * count``, or ``(H-1)(W-1) * count``
-    at offset sites.  CUDA tensors run the kernel; ``gn_silu_nhwc.launches``
-    counts its calls."""
+    at offset sites.  ``order`` is ``group_order(group_of, num_groups)``,
+    which a caller that keeps its map (``_GN``) builds once; without it the
+    wrapper builds it.  CUDA tensors run the kernel, one launch;
+    ``gn_silu_nhwc.launches`` counts its calls."""
     if x.device.type == "cpu":
         return gn_silu_nhwc_reference(x, scale, bias, group_of, num_groups, count, offset, eps)
     if x.device.type != "cuda":
         raise ValueError(f"gn_silu_nhwc runs on cuda or cpu, not {x.device}")
     _check_nhwc(x, scale, bias, group_of, num_groups, count, offset)
+    b, h, w, c4 = x.shape
+    if order is None:
+        order = group_order(group_of, num_groups)
+    elif (order.dtype != torch.int32 or order.shape != (num_groups + 1 + c4,)
+          or not order.is_contiguous() or order.device != x.device):
+        raise ValueError(f"order must be a contiguous int32 [{num_groups + 1 + c4}] tensor "
+                         f"on {x.device}")
     lib = _LIB.get()
     fn = lib.gn_silu_nhwc_bf16 if x.dtype == torch.bfloat16 else lib.gn_silu_nhwc_f32
-    b, h, w, c4 = x.shape
-    s = _slices(b, h * w, c4, x.element_size())
-    work = torch.empty(b * (s + 1) * 2 * c4, dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
+    pack = 16 // x.element_size()
+    vec = c4 % pack == 0 and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
+    plan = nhwc_plan(b, h, w, c4, num_groups, x.element_size(), vec, _sm_count(x.device))
+    work = torch.empty(plan.work, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), group_of.data_ptr(),
-                y.data_ptr(), work.data_ptr(), b, h, w, c4, num_groups, s,
+                order.data_ptr(), y.data_ptr(), work.data_ptr(), b, h, w, c4, num_groups,
+                plan.k, plan.rows, plan.staged, plan.grid, plan.smem,
                 _divisor(h, w, count, offset), int(offset), eps,
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"gn_silu_nhwc kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"gn_silu_nhwc kernel launch failed: CUDA error {rc} (plan {plan})")
     gn_silu_nhwc.launches += 1
     return y
 

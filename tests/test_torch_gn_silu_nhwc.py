@@ -153,3 +153,184 @@ def test_non_cuda_device_raises():
     with pytest.raises(ValueError):
         gn_silu_nhwc(x, torch.ones(8, device="meta"), torch.zeros(8, device="meta"),
                      torch.zeros(8, dtype=torch.int32, device="meta"), 2, 4)
+
+
+# -- the one-launch kernel's grid plan and order of summation ---------------------
+
+# The 33 GroupNorm sites of the packed flagship's forward (H, W, C4, groups,
+# offset), as chip_smoke.packed_sites lists them for artifacts/flagship_synth.
+FLAGSHIP_SITES = [
+    (128, 64, 128, 32, False), (129, 65, 128, 32, True), (64, 32, 128, 32, False),
+    (65, 33, 256, 32, True), (32, 16, 256, 32, False), (33, 17, 384, 32, True),
+    (16, 8, 384, 32, False), (17, 9, 512, 32, True), (8, 4, 512, 32, False),
+    (9, 5, 640, 32, True), (8, 4, 160, 32, False), (8, 4, 160, 32, False),
+    (8, 4, 320, 32, False), (8, 4, 160, 32, False), (8, 4, 1280, 32, False),
+    (9, 5, 512, 32, True), (8, 4, 1024, 32, False), (9, 5, 512, 32, True),
+    (16, 8, 1024, 32, False), (17, 9, 384, 32, True), (16, 8, 768, 32, False),
+    (17, 9, 384, 32, True), (32, 16, 768, 32, False), (33, 17, 256, 32, True),
+    (32, 16, 512, 32, False), (33, 17, 256, 32, True), (64, 32, 512, 32, False),
+    (65, 33, 128, 32, True), (64, 32, 256, 32, False), (65, 33, 128, 32, True),
+    (128, 64, 256, 32, False), (129, 65, 128, 32, True), (128, 64, 128, 32, False),
+]
+# chip_smoke.py phase 9's odd shapes (H, W, C4, groups)
+ODD_SHAPES = [(9, 5, 32, 4), (17, 9, 64, 8), (13, 7, 32, 4), (11, 7, 36, 3), (5, 7, 30, 5),
+              (16, 8, 64, 4)]
+SMS = 132  # an H100's SMs
+
+
+def test_plan_constants_match_the_kernel_source():
+    """The plan's copies of the kernel's block size and shared-memory ceiling."""
+    import re
+
+    from sddm_tpu_torch.ops import gn_silu as ops
+
+    src = ops.SOURCE.read_text()
+    for name, value in (("kThreadsN", ops._THREADS_N), ("kSmemMaxN", ops._SMEM_MAX)):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("b", [1, 3, 16, 200])
+def test_plan_covers_every_position_once_and_fits_the_card(b, elem):
+    from sddm_tpu_torch.ops.gn_silu import _SMEM_MAX, nhwc_fixed_bytes, nhwc_plan
+
+    shapes = [(h, w, c4, g) for h, w, c4, g, _ in FLAGSHIP_SITES] + ODD_SHAPES
+    for h, w, c4, groups in shapes:
+        hw, pack = h * w, 16 // elem
+        vec = c4 % pack == 0
+        p = nhwc_plan(b, h, w, c4, groups, elem, vec, SMS)
+        where = f"[{b}, {h}, {w}, {c4}] elem {elem}: {p}"
+        # K ranges of `rows` positions cover a row once, none of them empty
+        covered = np.zeros(hw, np.int64)
+        for k in range(p.k):
+            start, stop = k * p.rows, min(hw, (k + 1) * p.rows)
+            assert start < stop, where
+            covered[start:stop] += 1
+            if vec:  # 16-byte packs start on 16 bytes in every batch row
+                assert all((row * hw + start) * c4 * elem % 16 == 0 for row in range(b)), where
+        assert (covered == 1).all(), where
+        # every item is one block's, and every block has one: block j takes
+        # items j, j + grid, ...
+        items = b * p.k
+        owners = np.arange(items) % p.grid
+        assert 1 <= p.grid <= min(items, SMS), where
+        assert np.bincount(owners, minlength=p.grid).max() == p.per_block, where
+        assert np.bincount(owners, minlength=p.grid).min() >= 1, where
+        # the staged positions fit the block's shared memory, as many as fit
+        fixed = nhwc_fixed_bytes(c4, groups, pack if vec else 1)
+        assert 0 <= p.staged <= p.rows, where
+        assert p.smem == fixed + p.per_block * p.staged * c4 * elem <= _SMEM_MAX, where
+        if p.staged < p.rows:
+            assert fixed + p.per_block * (p.staged + 1) * c4 * elem > _SMEM_MAX, where
+        # the workspace is what the kernel writes: [B * K, 2, C4] partial sums
+        assert p.work == items * 2 * c4, where
+
+
+def test_plan_of_the_largest_site_rereads_only_what_does_not_fit():
+    from sddm_tpu_torch.ops.gn_silu import nhwc_plan
+
+    p = nhwc_plan(16, 128, 64, 256, 32, 2, True, SMS)
+    assert (p.k, p.rows, p.grid, p.per_block) == (8, 1024, 128, 1)
+    assert 0 < p.staged < p.rows  # the six largest sites outgrow shared memory
+    small = nhwc_plan(16, 8, 4, 160, 32, 2, True, SMS)
+    assert (small.k, small.staged) == (1, small.rows)  # one block a row: no grid barrier
+
+
+@pytest.mark.parametrize("groups,sections", [
+    (32, (32,)), (32, (64,)), (32, (96, 64)), (4, (8, 4)), (4, (4, 12)), (2, (8,)), (5, (30,)),
+])
+def test_group_order_lists_each_groups_members(groups, sections):
+    from sddm_tpu_torch.ops.gn_silu import group_order
+
+    _, group_of, _ = port_plan(groups, sections)
+    order = group_order(torch.as_tensor(group_of, dtype=torch.int32), groups)
+    assert order.dtype == torch.int32 and order.shape == (groups + 1 + len(group_of),)
+    offsets, members = order[:groups + 1].numpy(), order[groups + 1:].numpy()
+    assert offsets[0] == 0 and offsets[-1] == len(group_of)
+    np.testing.assert_array_equal(np.sort(members), np.arange(len(group_of)))
+    for g in range(groups):
+        listed = members[offsets[g]:offsets[g + 1]]
+        np.testing.assert_array_equal(listed, np.flatnonzero(group_of == g))
+
+
+def test_group_order_leaves_out_of_range_channels_last():
+    from sddm_tpu_torch.ops.gn_silu import group_order
+
+    order = group_order(torch.tensor([1, 3, 0, -1, 1, 2], dtype=torch.int32), 3)
+    np.testing.assert_array_equal(order.numpy(), [0, 1, 3, 4, 2, 0, 4, 5, 1, 3])
+
+
+def _kernel_order(x, scale, bias, group_of, groups, count, offset, sms, eps=1e-5):
+    """The kernel's order of summation, transcribed: f32 sums of each (row,
+    range) item, then per row its K partials in rank order, then per group
+    over the group-major member list; the same arithmetic after it."""
+    from sddm_tpu_torch.ops.gn_silu import _divisor, group_order, nhwc_plan
+
+    b, h, w, c4 = x.shape
+    p = nhwc_plan(b, h, w, c4, groups, x.element_size(), True, sms)
+    order = group_order(torch.as_tensor(group_of, dtype=torch.int32), groups)
+    offsets, members = order[:groups + 1].tolist(), order[groups + 1:].long()
+    x32 = x.float().reshape(b, h * w, c4)
+    n = _divisor(h, w, count, offset)
+    mu, iv = torch.empty(b, c4), torch.empty(b, c4)
+    for row in range(b):
+        cs = torch.zeros(2, c4)
+        for k in range(p.k):
+            seg = x32[row, k * p.rows:(k + 1) * p.rows]
+            cs = cs + torch.stack([seg.sum(0), (seg * seg).sum(0)])
+        for g in range(groups):
+            s = cs[:, members[offsets[g]:offsets[g + 1]]].sum(1)
+            mean = s[0] / n
+            var = torch.clamp_min(s[1] / n - mean * mean, 0.0)
+            chans = torch.as_tensor(group_of) == g
+            mu[row, chans], iv[row, chans] = mean, torch.rsqrt(var + eps)
+    y = (x32 - mu[:, None]) * iv[:, None] * scale + bias
+    y = (y * torch.sigmoid(y)).reshape(x.shape)
+    if offset:
+        y = y * torch.from_numpy(_offset_mask_np(h, w, c4 // 4))
+    return y
+
+
+@pytest.mark.parametrize("b,h,w,sections,groups,offset,sms", [
+    (2, 32, 16, (16,), 4, False, SMS),   # K = 8 ranges a row
+    (2, 33, 17, (16,), 4, True, SMS),    # offset site, ranges start mid-row
+    (5, 9, 5, (8,), 4, True, 4),         # more items than blocks: blocks loop
+    (1, 16, 8, (8, 4), 4, False, SMS),   # B = 1, a concatenated plan
+])
+def test_kernel_order_of_summation_matches_the_plain_version(b, h, w, sections, groups, offset,
+                                                             sms):
+    rng = np.random.default_rng(h * w)
+    c4 = 4 * sum(sections)
+    _, group_of, count = port_plan(groups, sections)
+    x = rng.standard_normal((b, h, w, c4)).astype(np.float32) * 1.5 + 0.3
+    if offset:
+        x = x * _offset_mask_np(h, w, c4 // 4)
+    sc = rng.standard_normal(c4).astype(np.float32)
+    bi = rng.standard_normal(c4).astype(np.float32)
+    args = (torch.from_numpy(x), torch.from_numpy(sc), torch.from_numpy(bi))
+    got = _kernel_order(*args, group_of, groups, count, offset, sms)
+    want = gn_silu_nhwc_reference(*args, torch.as_tensor(group_of, dtype=torch.int32), groups,
+                                  count, offset)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+def test_cpu_tensor_with_group_order_takes_reference_without_launch():
+    from sddm_tpu_torch.ops.gn_silu import group_order
+
+    x = torch.randn(2, 5, 3, 16, generator=torch.Generator().manual_seed(1))
+    group_of = torch.arange(16, dtype=torch.int32) // 4
+    args = (torch.ones(16), torch.zeros(16), group_of, 4, 4)
+    before = gn_silu_nhwc.launches
+    got = gn_silu_nhwc(x, *args, offset=True, order=group_order(group_of, 4))
+    assert torch.equal(got, gn_silu_nhwc_reference(x, *args, offset=True))
+    assert gn_silu_nhwc.launches == before
+
+
+def test_gn_site_keeps_its_group_order_as_an_unsaved_buffer():
+    from sddm_tpu_torch.models.unet_packed import _GN as PortGN
+    from sddm_tpu_torch.ops.gn_silu import group_order
+
+    _, group_of, count = port_plan(4, (8, 4))
+    gn = PortGN(np.ones(48), np.zeros(48), group_of, 4, count)
+    assert torch.equal(gn.order, group_order(torch.as_tensor(group_of, dtype=torch.int32), 4))
+    assert "order" not in gn.state_dict()
