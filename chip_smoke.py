@@ -8,14 +8,19 @@ Run from the root of a checkout, with no arguments:
 Phases, each of which exits non-zero when it fails:
   1. the card: name, nvidia-smi name and power limit, versions;
   2. build the CUDA GroupNorm+SiLU kernels (NCHW and NHWC, one source) with
-     nvcc (build time and the ``-Xptxas -v`` summary); the NHWC kernel's
+     nvcc (build time and the ``-Xptxas -v`` summary); the NCHW kernel's
+     plan at the largest plain site (cluster size, CTAs, threads, packs a
+     thread) and ``cudaOccupancyMaxActiveClusters`` for it; the NHWC kernel's
      grid and dynamic shared memory at the largest packed site, and the
      count of bulk copies (``UBLKCP``) in the library's SASS (0: the kernel
      stages x with 16-byte loads and shared stores, not ``cp.async.bulk``);
   3. hold the NCHW kernel against its plain PyTorch version at every
      GroupNorm site of the plain flagship network, batch 16, in float32 and
-     bfloat16, plus an odd shape (unaligned path) and a near-constant group
-     (variance clamp);
+     bfloat16, plus an odd shape (unaligned path), a near-constant group
+     (variance clamp), B = 1, B = 200 (several runs a CTA), runs over four
+     times what one cluster holds (the reread), runs that are not a multiple
+     of the cluster size in packs, and the one-element path on a cluster;
+     every call repeated bit for bit, and each call's plan printed;
   4. load the committed flagship checkpoint through ``load_enhancer`` with
      ``packed=False``, the plain NCHW network, at ancestral-12 (the serving
      recipe, bfloat16 compute);
@@ -28,10 +33,14 @@ Phases, each of which exits non-zero when it fails:
   7. time the kernel, its plain version and the two-call
      ``F.silu(F.group_norm(...))`` at the largest site with CUDA events,
      beside the bound of the bytes it must move, and the kernel and plain
-     version at every site;
+     version at every site; every site's device time of the kernel alone
+     from the profiler (CUDA events over back-to-back calls time the host's
+     cost at the small sites), and their sum over a forward beside the
+     bound;
   8. profile one served batch: device busy time by kernel, and the idle
      share against the unprofiled serve time of phase 5 (the profiler's own
-     host cost inflates its wall time; both are printed).
+     host cost inflates its wall time; both are printed); the NCHW kernel
+     must show time and one launch per ``gn_silu`` call under its names.
 Then the packed (space-to-depth) engine, ``load_enhancer``'s default:
   9. load the flagship through ``load_enhancer(steps=12)`` with its defaults:
      the network must be ``PackedUNetModified2`` and its canary must pass;
@@ -207,6 +216,33 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_time_us(fn, match, calls: int = 5, tries: int = 3):
+    """The profiler's device time of one launch of the kernels whose names
+    ``match`` accepts, over ``calls`` calls of ``fn`` after three warm-up
+    calls: (us a launch, launches seen).  A window in which the profiler saw
+    none of the launches is profiled again, up to ``tries`` times in all: on
+    an H100 the profiler once returned no device events for a window of five
+    launches that had run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and match(e.key)]
+        seen = sum(e.count for e in events)  # the profiler may miss a launch at its start
+        if seen:
+            return sum(e.self_device_time_total for e in events) / seen, seen
+    return 0.0, 0
+
+
 def close_enough(got, want, atol: float, rtol: float):
     import torch
 
@@ -259,6 +295,18 @@ def plain_diffwave_stack():
 def bf16_ulp(v: float) -> float:
     """The spacing of bfloat16 values at magnitude ``v``."""
     return 2.0 ** (math.floor(math.log2(v)) - 7)
+
+
+def is_nchw_kernel(name: str) -> bool:
+    """Whether the profiler's kernel ``name`` is the NCHW kernel of
+    csrc/gn_silu.cu: every instantiation has ``gn_silu`` in its name."""
+    return "gn_silu" in name and NHWC_KERNEL not in name
+
+
+def nchw_plan_text(p) -> str:
+    """One NCHW plan (ops/gn_silu.py::nchw_plan) as phases 2, 3 and 7 print it."""
+    return (f"q={p.q} CTAs={p.grid} threads={p.threads} packs={p.packs} runs/CTA={p.runs} "
+            f"smem={p.smem} reread={p.reread}/{p.slice}")
 
 
 def differences(got, want):
@@ -950,21 +998,12 @@ def packed_phases(device, config, net_args, audios, plain_enh, gen) -> tuple:
     for m, hwc in sites:
         x = torch.randn((BATCH_ROWS,) + hwc, device=device, generator=gen).to(torch.bfloat16)
         args = (x, m.scale, m.bias, m.group_of, m.groups, m.count, m.offset)
-        for _ in range(3):
-            gn_silu_nhwc(*args, order=m.order)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                gn_silu_nhwc(*args, order=m.order)
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and NHWC_KERNEL in e.key]
-        seen = sum(e.count for e in events)  # the profiler may miss a launch at its start
+        t_us, seen = device_time_us(lambda: gn_silu_nhwc(*args, order=m.order),
+                                    lambda key: NHWC_KERNEL in key)
         if not 1 <= seen <= 5:
             fail(f"the profiler saw {seen} launches of {NHWC_KERNEL} for 5 calls at {hwc}")
         plan = nhwc_plan(BATCH_ROWS, *hwc, m.groups, 2, True, sms)
-        device_us.append((sum(e.self_device_time_total for e in events) / seen, hwc, plan,
-                          gn_bound(x, 3 * hwc[-1] * 4)[0] * 1e3))
+        device_us.append((t_us, hwc, plan, gn_bound(x, 3 * hwc[-1] * 4)[0] * 1e3))
     device_ms = sum(t[0] for t in device_us) / 1e3
     for t_us, hwc, plan, b_us in device_us:
         log(f"       {str(list(hwc)):16s} K={plan.k:<3d} staged {plan.staged:>4d}/{plan.rows:<4d} "
@@ -1094,7 +1133,14 @@ def main() -> int:
     from sddm_tpu_torch.models import UNetModified2
     from sddm_tpu_torch.models.blocks import GroupNormSiLU
     from sddm_tpu_torch.ops import diffwave_stack as dw_ops
-    from sddm_tpu_torch.ops.gn_silu import build, gn_silu, gn_silu_reference, nhwc_plan
+    from sddm_tpu_torch.ops.gn_silu import (
+        build,
+        gn_silu,
+        gn_silu_reference,
+        nchw_max_clusters,
+        nchw_plan,
+        nhwc_plan,
+    )
 
     if Path(sddm_tpu_torch.__file__).resolve().parent != ROOT / "sddm_tpu_torch":
         fail(f"imported sddm_tpu_torch from {sddm_tpu_torch.__file__}, not {ROOT}")
@@ -1122,6 +1168,11 @@ def main() -> int:
     log(f"    {NHWC_KERNEL} at the largest packed site [{BATCH_ROWS}, 128, 64, 256] bf16 on "
         f"{sms} SMs: {big.grid} blocks of 512 threads, {big.smem} bytes of dynamic shared "
         f"memory each, {big.staged} of {big.rows} positions a block staged")
+    big_c = nchw_plan(BATCH_ROWS, 64, 256 * 128, 32, 2, True, sms)
+    held = nchw_max_clusters(big_c, 2, True) if big_c.q > 1 else "n/a (no cluster)"
+    log(f"    gn_silu_nchw at the largest plain site [{BATCH_ROWS}, 64, 256, 128] bf16: "
+        f"{nchw_plan_text(big_c)} ({big_c.slice * 16} bytes a CTA, {big_c.packs} 16-byte packs "
+        f"a thread); cudaOccupancyMaxActiveClusters {held}")
     sass = sass_counts(built["path"])
     log(f"    SASS of {built['path'].name}: UBLKCP (bulk copy) {sass['UBLKCP']}")
 
@@ -1150,8 +1201,13 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(SEED)
     max_err = {"float32": 0.0, "bfloat16": 0.0}
     cases = [((BATCH_ROWS,) + chw, g, 1.0) for chw, g in distinct]
-    cases += [((3, 12, 7, 5), 4, 1.0),       # cg 3, H*W = 35: the unaligned path
-              ((2, 16, 8, 8), 16, 1e-3)]     # near-constant groups at 1000
+    cases += [((3, 12, 7, 5), 4, 1.0),        # cg 3, H*W = 35: the unaligned path
+              ((2, 16, 8, 8), 16, 1e-3),      # near-constant groups at 1000
+              ((1, 64, 256, 128), 32, 1.0),   # B = 1
+              ((200, 160, 8, 4), 32, 1.0),    # B = 200: several runs a CTA
+              ((2, 4, 1024, 2560), 2, 1.0),   # runs over 4x what a cluster holds: the reread
+              ((16, 64, 257, 136), 32, 1.0),  # runs not a multiple of q packs (bf16 3 x 2185 + 2183)
+              ((4, 8, 129, 129), 4, 1.0)]     # one element a load (H*W odd) on a cluster of 8
     for shape, g, spread in cases:
         c = shape[1]
         w = (1 + 0.5 * torch.randn(c, device=device, generator=gen)).contiguous()
@@ -1167,12 +1223,16 @@ def main() -> int:
             if got.dtype != dtype or got.shape != x.shape or not torch.isfinite(got).all():
                 fail(f"kernel output at {shape} {dtype_name}: dtype {got.dtype}, "
                      f"finite {bool(torch.isfinite(got).all())}")
+            if not torch.equal(gn_silu(x, w, b, g), got):
+                fail(f"gn_silu is not deterministic at {shape} {dtype_name}")
             if spread < 1:  # the clamp case: finite is the check
                 continue
             ok, err = close_enough(got, want, *TOL[dtype_name])
             max_err[dtype_name] = max(max_err[dtype_name], err)
+            hw, elem = shape[2] * shape[3], x.element_size()
+            plan = nchw_plan(shape[0], c, hw, g, elem, hw % (16 // elem) == 0, sms)
             log(f"    {str(shape):22s} G={g:<3d} {dtype_name:8s} max|d|={err:.3e} "
-                f"{'ok' if ok else 'OVER'} (atol, rtol {TOL[dtype_name]})")
+                f"{'ok' if ok else 'OVER'} (atol, rtol {TOL[dtype_name]})  {nchw_plan_text(plan)}")
             if not ok:
                 fail(f"kernel disagrees with gn_silu_reference at {shape} {dtype_name}")
 
@@ -1258,6 +1318,9 @@ def main() -> int:
     net.dtype = torch.bfloat16
 
     # -- 7. timing at the largest site --------------------------------------
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     (c, h, w_), g = distinct[0]
     shape = (BATCH_ROWS, c, h, w_)
     x = torch.randn(shape, device=device, generator=gen).to(torch.bfloat16)
@@ -1278,42 +1341,62 @@ def main() -> int:
                                      cuda_time_ms(lambda: gn_silu_reference(xs, ones, zeros, gs), 20),
                                      gn_bound(xs, 2 * cs * 4)[0])
     per_forward = [sum(site_ms[chw + (gs,)][i] for chw, gs in sites) for i in (0, 1, 2)]
+    site_us = {}  # the kernel alone: the profiler's device time a launch, 5 calls a site
+    for (cs, hs, ws), gs in distinct:
+        xs = torch.randn((BATCH_ROWS, cs, hs, ws), device=device,
+                         generator=gen).to(torch.bfloat16)
+        ones, zeros = torch.ones(cs, device=device), torch.zeros(cs, device=device)
+        t_us, seen = device_time_us(lambda: gn_silu(xs, ones, zeros, gs), is_nchw_kernel)
+        if not 1 <= seen <= 5:
+            fail(f"the profiler saw {seen} launches of the NCHW gn_silu kernel for 5 calls at "
+                 f"{(cs, hs, ws)}")
+        site_us[(cs, hs, ws, gs)] = t_us
+    device_ms = sum(site_us[chw + (gs,)] for chw, gs in sites) / 1e3
     log(f"[7] {shape} bf16 G={g}: kernel {kernel_ms:.4f} / {kernel_ms2:.4f} ms, plain "
         f"{plain_ms:.4f} ms, F.silu(F.group_norm) {two_call_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}: {bytes_moved} B at 3.35 TB/s); "
         f"{bytes_moved / kernel_ms / 1e6:.0f} GB/s")
-    for (cs, hs, ws, gs), (k_ms, p_ms, _) in site_ms.items():
+    for (cs, hs, ws, gs), (k_ms, p_ms, b_ms) in site_ms.items():
         log(f"    site [{BATCH_ROWS},{cs},{hs},{ws}] G={gs}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-            f"{sites.count(((cs, hs, ws), gs))} per forward")
+            f"device {site_us[(cs, hs, ws, gs)]:6.1f} us, bound {b_ms * 1e3:6.2f} us, "
+            f"{sites.count(((cs, hs, ws), gs))} per forward; "
+            f"{nchw_plan_text(nchw_plan(BATCH_ROWS, cs, hs * ws, gs, 2, True, sms))}")
     log(f"    all {len(sites)} sites of one batch-{BATCH_ROWS} forward: kernel {per_forward[0]:.3f} ms, "
         f"plain {per_forward[1]:.3f} ms, bound {per_forward[2]:.4f} ms; no single PyTorch call "
         f"computes GroupNorm+SiLU "
         f"(library_ms null; the two-call time is two_call_ms)")
+    log(f"    the same {len(sites)} sites, device time of the NCHW kernel alone (profiler, 5 calls "
+        f"a site): {device_ms:.4f} ms a forward ({device_ms / len(sites) * 1e3:.1f} us a site), "
+        f"bound {per_forward[2]:.4f} ms")
 
     # -- 8. where the time goes: one served batch under the profiler ----------
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     enh.generator = torch.Generator(device=device).manual_seed(SEED)
     torch.cuda.synchronize()
+    gn_silu.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
         enh.enhance_batch(audios)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - start) * 1e3
+    profiled_launches = gn_silu.launches
     device_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = {e.key: e.self_device_time_total / 1e3 for e in device_events}
     busy_ms = sum(busy.values())
-    gn_ms = sum(v for k, v in busy.items() if "gn_silu" in k)
+    gn_ms = sum(v for k, v in busy.items() if is_nchw_kernel(k))
+    gn_calls = sum(e.count for e in device_events if is_nchw_kernel(e.key))
     idle_share = 1 - busy_ms / (serve_s * 1e3)
     if busy_ms > 0:
         log(f"[8] profiled serve of the same batch: device busy {busy_ms:.1f} ms, idle share "
             f"{idle_share:.3f} of the unprofiled serve ({serve_s * 1e3:.1f} ms, phase 5); "
             f"{1 - busy_ms / prof_wall_ms:.3f} of the profiled wall ({prof_wall_ms:.1f} ms); "
-            f"gn_silu kernel {gn_ms:.2f} ms ({gn_ms / busy_ms:.3f} of busy)")
+            f"gn_silu kernel {gn_ms:.2f} ms ({gn_ms / busy_ms:.3f} of busy, x{gn_calls}, "
+            f"{gn_ms / max(gn_calls, 1) * 1e3:.1f} us a call)")
         for name, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:12]:
             n_calls = next(e.count for e in device_events if e.key == name)
             log(f"    {ms:9.3f} ms {ms / busy_ms:6.3f} x{n_calls:<5d} {name[:90]}")
+        if profiled_launches > 0 and not (gn_ms > 0 and gn_calls == profiled_launches):
+            fail(f"gn_silu launched {profiled_launches} times in the profiled batch, but the "
+                 f"profile shows {gn_calls} launches and {gn_ms} ms under the NCHW kernel's names")
     else:
         log("[8] the profiler saw no device time: breakdown not measured")
 
@@ -1337,13 +1420,15 @@ def main() -> int:
         "shape": list(shape),
         "dtype": "bfloat16",
         "sites_per_forward_ms": per_forward[0],
+        "sites_per_forward_device_ms": device_ms,
         "plain_sites_per_forward_ms": per_forward[1],
         "bound_sites_per_forward_ms": per_forward[2],
     }, nhwc_record, dw_record], "serve": {"requests": len(audios), "rows": n_rows, "steps": STEPS,
                   "seconds": serve_s, "audio_seconds": audio_s, "peak_bytes": peak,
                   "e2e": e2e, "card_vs_cpu_f32": card_cpu_err,
                   "profile": {"wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
-                              "idle_share": idle_share, "gn_silu_ms": gn_ms}},
+                              "idle_share": idle_share, "gn_silu_ms": gn_ms,
+                              "gn_silu_profiled_launches": gn_calls}},
         "serve_packed": packed_serve,
         "serve_diffwave": dw_serve,
         "build_seconds": {"gn_silu": built["seconds"], "diffwave_stack": dw_built["seconds"]},

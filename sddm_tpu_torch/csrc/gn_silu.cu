@@ -10,21 +10,36 @@
 // x * sigmoid(x), and one rounding to the input type.  Any channels-per-group
 // count cg = C / G is taken.
 //
-// Bound: memory traffic.  The function reads the tensor at least once and
-// writes it once; at about ten f32 operations per element its arithmetic
-// intensity is below 5 operations per byte, far under the card's 295
-// operations-per-byte ridge.  So the design only tries to move few bytes in
-// wide, coalesced accesses:
-//   * In NCHW one (batch row, group) is one contiguous run of cg * H * W
-//     values.  One block owns one run: the statistics need no cross-block
-//     reduction and no second launch.
-//   * Sweep 1 reads the run in 16-byte vectors and sums x and x^2 in f32;
-//     a warp-shuffle plus shared-memory reduction gives the block's sums.
-//   * Sweep 2 reads the run again (largely from L2), normalises, applies the
-//     channel's affine and the SiLU, rounds and stores in 16-byte vectors.
-// The second read is the known cost of this simple design: a later version
-// can keep the run in shared memory (128 KB in bf16 at the largest flagship
-// site) and read the tensor once.
+// Bound: memory traffic.  The function reads x once and writes y once; at
+// about ten f32 operations per element its arithmetic intensity is below 5
+// operations per byte, far under the card's 295 operations-per-byte ridge:
+// 0.040 ms for the largest flagship site [16, 64, 256, 128] bf16 at 3.35
+// TB/s.  In NCHW one (batch row, group), a run, is cg * H * W contiguous
+// values (8 KB to 128 KB in bf16 at the flagship's large sites, 320 bytes at
+// its smallest).  The statistics need the whole run before any element can
+// be normalised, so a design that streams the run twice reads x about three
+// times once the runs in flight outgrow the 50 MB L2.  This design
+// (gn_silu_nchw) reads every element once and keeps it on chip, in shared
+// memory:
+//   * a run of up to 64 KB is one CTA's (small runs several to a CTA, a warp
+//     or a few a run); a larger one is split across the q <= 8 CTAs of a
+//     thread-block cluster, whose partial sums meet through distributed
+//     shared memory, summed in rank order in every CTA;
+//   * a CTA reads its slice with eight 16-byte loads in flight a thread,
+//     keeps it in shared memory and sums it; then it normalises from shared
+//     memory and stores with 16-byte streaming stores: one launch, no
+//     workspace, no atomics, the same bits on a repeat;
+//   * a slice larger than 226 KB keeps what fits and reads the rest again
+//     (no flagship site does).
+// The SiLU of a bf16 result uses __expf and __fdividef: with the IEEE
+// versions the arithmetic, not the memory, set the kernel's pace in
+// development.  Keeping x in registers (16 KB a CTA on clusters of 8) and a
+// persistent ring of cp.async stages were both slower in development: the
+// CTAs of one SM load, wait at the cluster barrier and compute in lockstep,
+// so the arithmetic does not overlap the memory traffic; slices of up to
+// 64 KB in shared memory leave several CTAs an SM at different phases.
+// The plan (cluster size, threads, runs a CTA, shared memory, grid) is
+// computed in ops/gn_silu.py::nchw_plan and checked by the launcher.
 //
 // NHWC (gn_silu_nhwc_f32, gn_silu_nhwc_bf16) replaces the Pallas kernel
 // sddm_tpu/experimental/pallas_gn_silu.py::gn_silu, the GroupNorm -> SiLU
@@ -79,9 +94,6 @@
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-
 template <typename T>
 struct alignas(16) Pack {
   T v[16 / sizeof(T)];
@@ -111,113 +123,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // (x - mean) * (rstd * w) + b, then y * sigmoid(y): the order of flax's
 // _normalize (mul = rsqrt(var + eps) * scale; y = (x - mean) * mul + bias).
+// kFast (a bf16 result): __expf and __fdividef, whose error of a few f32 ulps
+// lies far under the result's bf16 rounding; else the IEEE expf and division.
+template <bool kFast>
 __device__ __forceinline__ float norm_silu(float x, float mean, float a, float b) {
-  float y = (x - mean) * a + b;
-  return y / (1.0f + expf(-y));
+  const float y = (x - mean) * a + b;
+  return kFast ? __fdividef(y, 1.0f + __expf(-y)) : y / (1.0f + expf(-y));
 }
-
-// kVec: every channel's H*W run is a whole number of 16-byte packs and both
-// pointers are 16-byte aligned, so no pack straddles two channels.
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-    gn_silu_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ b, T* __restrict__ y, int C,
-                   int HW, int G, float eps) {
-  constexpr int P = 16 / sizeof(T);
-  const int cg = C / G;
-  const int g = blockIdx.x % G;
-  const int64_t n = (int64_t)cg * HW;
-  const T* xg = x + (int64_t)blockIdx.x * n;
-  T* yg = y + (int64_t)blockIdx.x * n;
-
-  float s = 0.f, ss = 0.f;
-  if (kVec) {
-    const Pack<T>* xp = reinterpret_cast<const Pack<T>*>(xg);
-    const int64_t np = n / P;
-    for (int64_t i = threadIdx.x; i < np; i += kThreads) {
-      const Pack<T> p = xp[i];
-#pragma unroll
-      for (int k = 0; k < P; ++k) {
-        const float v = to_f32(p.v[k]);
-        s += v;
-        ss += v * v;
-      }
-    }
-  } else {
-    for (int64_t i = threadIdx.x; i < n; i += kThreads) {
-      const float v = to_f32(xg[i]);
-      s += v;
-      ss += v * v;
-    }
-  }
-
-  __shared__ float red[2][kWarps];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  s = warp_sum(s);
-  ss = warp_sum(ss);
-  if (lane == 0) {
-    red[0][warp] = s;
-    red[1][warp] = ss;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    s = lane < kWarps ? red[0][lane] : 0.f;
-    ss = lane < kWarps ? red[1][lane] : 0.f;
-    s = warp_sum(s);
-    ss = warp_sum(ss);
-    if (lane == 0) {
-      red[0][0] = s;
-      red[1][0] = ss;
-    }
-  }
-  __syncthreads();
-  const float mean = red[0][0] / (float)n;
-  const float var = fmaxf(red[1][0] / (float)n - mean * mean, 0.f);
-  const float rstd = rsqrtf(var + eps);
-
-  if (kVec) {
-    const Pack<T>* xp = reinterpret_cast<const Pack<T>*>(xg);
-    Pack<T>* yp = reinterpret_cast<Pack<T>*>(yg);
-    const int64_t np = n / P;
-    for (int64_t i = threadIdx.x; i < np; i += kThreads) {
-      const int c = g * cg + (int)((i * P) / HW);
-      const float a = rstd * w[c];
-      const float bc = b[c];
-      const Pack<T> p = xp[i];
-      Pack<T> o;
-#pragma unroll
-      for (int k = 0; k < P; ++k) o.v[k] = from_f32<T>(norm_silu(to_f32(p.v[k]), mean, a, bc));
-      yp[i] = o;
-    }
-  } else {
-    for (int64_t i = threadIdx.x; i < n; i += kThreads) {
-      const int c = g * cg + (int)(i / HW);
-      yg[i] = from_f32<T>(norm_silu(to_f32(xg[i]), mean, rstd * w[c], b[c]));
-    }
-  }
-}
-
-template <typename T>
-int launch(const void* x, const void* w, const void* b, void* y, int B, int C,
-           int HW, int G, float eps, void* stream) {
-  if (B <= 0 || C <= 0 || HW <= 0 || G <= 0 || C % G != 0 ||
-      (int64_t)B * G > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  constexpr int P = 16 / sizeof(T);
-  const bool vec = HW % P == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0;
-  const dim3 grid((unsigned)(B * G));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* xt = static_cast<const T*>(x);
-  const float* wt = static_cast<const float*>(w);
-  const float* bt = static_cast<const float*>(b);
-  T* yt = static_cast<T*>(y);
-  if (vec)
-    gn_silu_kernel<T, true><<<grid, kThreads, 0, s>>>(xt, wt, bt, yt, C, HW, G, eps);
-  else
-    gn_silu_kernel<T, false><<<grid, kThreads, 0, s>>>(xt, wt, bt, yt, C, HW, G, eps);
-  return (int)cudaGetLastError();
-}
-
 
 // ------------------------------------------------------------------ NHWC ----
 constexpr int kThreadsN = 512;     // one block of 512 threads on each SM
@@ -615,16 +527,299 @@ int launch_nhwc(const void* x, const void* scale, const void* bias, const void* 
   return vec ? launch_nhwc_p<T, P>(a, grid, smem, s) : launch_nhwc_p<T, 1>(a, grid, smem, s);
 }
 
-}  // namespace
+// ------------------------------------------------------------------ NCHW ----
+constexpr int kThreadsC = 512;     // threads of one CTA, at most
+constexpr int kClusterC = 8;       // CTAs of one cluster, at most (the portable limit)
+constexpr int kLoadsC = 8;         // units a thread has in flight while it reads its slice
+constexpr int kSmemMaxC = 231424;  // dynamic shared memory of a CTA: 227 KB less 1 KB kept
+                                   // for the static reduction arrays
 
-extern "C" int gn_silu_f32(const void* x, const void* w, const void* b, void* y,
-                           int B, int C, int HW, int G, float eps, void* stream) {
-  return launch<float>(x, w, b, y, B, C, HW, G, eps, stream);
+// One call's arguments and its plan (ops/gn_silu.py::nchw_plan).  A unit is
+// what one load moves: a 16-byte pack of P elements, or one element.
+struct NchwArgs {
+  const void* x;
+  void* y;
+  const float* w;
+  const float* b;
+  int64_t n;  // elements of a run (one batch row's group: cg * HW)
+  int G, cg;
+  int upc;    // units of a channel: HW / P
+  int runs;   // B * G
+  int q;      // CTAs of a cluster; a run is split into q slices
+  int rpc;    // runs of a CTA (q == 1 only)
+  int tpr;    // threads of a run in its CTA, whole warps
+  int slice;  // units of a slice (the last one may be shorter)
+  int cap;    // units of a slice kept in shared memory; the rest is read twice
+  float eps;
+};
+
+// the channel of unit i of a run as i steps by `step`, without a division a step
+struct ChannelWalk {
+  int c, r, dq, dr, upc;
+  __device__ ChannelWalk(int i, int step, int upc_)
+      : c(i / upc_), r(i % upc_), dq(step / upc_), dr(step % upc_), upc(upc_) {}
+  __device__ void next() {
+    c += dq;
+    r += dr;
+    if (r >= upc) {
+      r -= upc;
+      ++c;
+    }
+  }
+};
+
+// One launch per call.  Run r (batch row r / G, group r % G) is cg * HW
+// contiguous elements.  With q > 1 the q CTAs of cluster r each take one
+// slice of run r; with q == 1 CTA i takes runs i * rpc ... (i + 1) * rpc - 1,
+// tpr threads a run.  Thread j of a run handles units lo + j + m * tpr of its
+// slice [lo, hi).
+//   1. it reads its units once, kLoadsC 16-byte loads in flight, keeps them
+//      in shared memory (the first `cap` units of the slice: all of it at
+//      every flagship site) and sums x and x^2 in f32, in order; units past
+//      `cap` are read again in step 3;
+//   2. a warp shuffle tree, then the run's warps in order, give the CTA's
+//      sums; with q > 1 each CTA writes them to its shared memory, one
+//      cluster barrier, and every warp reads the q partials through
+//      distributed shared memory and sums them in rank order, so every CTA
+//      of the run holds the same bits: no atomics, workspace or second
+//      launch;
+//   3. it normalises from shared memory, applies the affine and the SiLU,
+//      rounds once and stores with 16-byte streaming stores.
+// With q > 1 a second cluster barrier, split, comes before a CTA exits: it
+// arrives once it has read its peers' partials and waits at its end, so
+// that its own shared memory outlives its peers' reads.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreadsC) gn_silu_nchw(const NchwArgs a) {
+  constexpr int P = kVec ? 16 / (int)sizeof(T) : 1;
+  constexpr bool kFast = sizeof(T) == 2;
+  using U = typename Raw<T, P>::type;
+  extern __shared__ __align__(16) unsigned char nchw_stage[];
+  __shared__ float red[2][kThreadsC / 32];
+  __shared__ float part[2];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int q = a.q, tpr = a.tpr, slot = tid / tpr, j = tid - slot * tpr, wpr = tpr / 32;
+  const int run = (int)(blockIdx.x / q) * a.rpc + slot;
+  const bool live = run < a.runs;  // the last CTA may hold fewer runs
+  const int rank = q > 1 ? (int)cooperative_groups::this_cluster().block_rank() : 0;
+  // unit offsets within a run fit an int: the launcher takes n < 2^31 - 2^13
+  const int units = (int)(a.n / P), lo = rank * a.slice;
+  const int hi = lo + a.slice < units ? lo + a.slice : units;
+  const int mid = lo + a.cap < hi ? lo + a.cap : hi;  // [lo, mid) kept in shared memory
+  const size_t base = (size_t)(live ? run : 0) * a.n;
+  const U* xu = reinterpret_cast<const U*>(static_cast<const T*>(a.x) + base);
+  U* yu = reinterpret_cast<U*>(static_cast<T*>(a.y) + base);
+  U* st = reinterpret_cast<U*>(nchw_stage) + slot * a.cap;  // unit i at st[i - lo]
+
+  // -- 1. read the slice once, sum ------------------------------------------------
+  float s = 0.f, ss = 0.f;
+  auto add = [&](const U& u) {
+    float f[P];
+    unpack<T, P>(u, f);
+#pragma unroll
+    for (int e = 0; e < P; ++e) {
+      s += f[e];
+      ss += f[e] * f[e];
+    }
+  };
+  if (live) {
+    int i = lo + j;
+    for (; i + (kLoadsC - 1) * tpr < mid; i += kLoadsC * tpr) {
+      U t[kLoadsC];
+#pragma unroll
+      for (int u = 0; u < kLoadsC; ++u) t[u] = xu[i + u * tpr];
+#pragma unroll
+      for (int u = 0; u < kLoadsC; ++u) {
+        st[i + u * tpr - lo] = t[u];
+        add(t[u]);
+      }
+    }
+    for (; i < mid; i += tpr) {
+      const U t = xu[i];
+      st[i - lo] = t;
+      add(t);
+    }
+    for (i = mid + j; i < hi; i += tpr) add(xu[i]);  // read again in step 3
+  }
+
+  // -- 2. the run's statistics ------------------------------------------------------
+  s = warp_sum(s);  // every lane ends with the same bits
+  ss = warp_sum(ss);
+  if (q > 1 || wpr > 1) {
+    if (lane == 0) {
+      red[0][warp] = s;
+      red[1][warp] = ss;
+    }
+    __syncthreads();
+    s = ss = 0.f;
+    for (int w = slot * wpr; w < (slot + 1) * wpr; ++w) {
+      s += red[0][w];
+      ss += red[1][w];
+    }
+    if (q > 1) {
+      auto cluster = cooperative_groups::this_cluster();
+      if (tid == 0) {
+        part[0] = s;
+        part[1] = ss;
+      }
+      cluster.sync();
+      float ps = 0.f, pss = 0.f;
+      if (lane < q) {
+        const float* peer = cluster.map_shared_rank(&part[0], lane);
+        ps = peer[0];
+        pss = peer[1];
+      }
+      s = ss = 0.f;
+      for (int r = 0; r < q; ++r) {
+        s += __shfl_sync(0xffffffffu, ps, r);
+        ss += __shfl_sync(0xffffffffu, pss, r);
+      }
+      cluster.barrier_arrive();  // the second barrier, split: the peers' partials are read
+    }
+  }
+  const float mean = s / (float)a.n;
+  // __fmul_rn keeps mean^2 rounded on its own, as the plain version rounds it
+  const float var = fmaxf(__fsub_rn(ss / (float)a.n, __fmul_rn(mean, mean)), 0.f);
+  const float rstd = rsqrtf(var + a.eps);
+
+  // -- 3. normalise from shared memory ------------------------------------------------
+  if (live) {
+    const float* wg = a.w + (run % a.G) * a.cg;
+    const float* bg = a.b + (run % a.G) * a.cg;
+    auto out = [&](const U& u, int i, const ChannelWalk& ch) {
+      float f[P];
+      unpack<T, P>(u, f);
+      const float aw = rstd * __ldg(wg + ch.c), bc = __ldg(bg + ch.c);
+#pragma unroll
+      for (int e = 0; e < P; ++e) f[e] = norm_silu<kFast>(f[e], mean, aw, bc);
+      store_vec<T, P>(reinterpret_cast<T*>(yu + i), f);
+    };
+    ChannelWalk ch(lo + j, tpr, a.upc);  // a unit never straddles two channels
+    for (int i = lo + j; i < mid; i += tpr, ch.next()) out(st[i - lo], i, ch);
+    ChannelWalk cr(mid + j, tpr, a.upc);
+    for (int i = mid + j; i < hi; i += tpr, cr.next()) out(xu[i], i, cr);
+  }
+  if (q > 1) cooperative_groups::this_cluster().barrier_wait();
 }
 
-extern "C" int gn_silu_bf16(const void* x, const void* w, const void* b, void* y,
-                            int B, int C, int HW, int G, float eps, void* stream) {
-  return launch<__nv_bfloat16>(x, w, b, y, B, C, HW, G, eps, stream);
+// Launch one instantiation with q CTAs a cluster (no cluster attribute for
+// q == 1), raising the shared-memory ceiling once per device.  For q > 1 the
+// clusters the card can hold at once are counted
+// (cudaOccupancyMaxActiveClusters) once per device, q, threads and shared
+// memory: fewer than one and the launch could never run, which is an error.
+// With a == nullptr only the count is taken, into *clusters.
+template <typename T, bool kVec>
+int nchw_launch(const NchwArgs* a, int q, int threads, int grid, int smem, cudaStream_t stream,
+                int* clusters) {
+  const auto kernel = gn_silu_nchw<T, kVec>;
+  static bool configured[64] = {};  // per device: the shared-memory ceiling is raised
+  static int checked[64][4] = {};   // per device and log2(q): the configuration counted
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev < 0 || dev >= 64)) err = cudaErrorInvalidDevice;
+  if (err == cudaSuccess && !configured[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMaxC);
+    configured[dev] = err == cudaSuccess;
+  }
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)q;
+  attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = q > 1 ? 1 : 0;
+  if (q > 1) {
+    const int lq = q == 2 ? 1 : q == 4 ? 2 : 3, key = 1 + threads + (kThreadsC + 1) * smem;
+    if (clusters != nullptr || checked[dev][lq] != key) {
+      int n = 0;
+      err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+      if (err != cudaSuccess) return (int)err;
+      if (clusters != nullptr) *clusters = n;
+      if (n < 1) return (int)cudaErrorInvalidClusterSize;  // no cluster of q fits
+      checked[dev][lq] = key;
+    }
+  }
+  if (a == nullptr) return (int)cudaSuccess;
+  err = cudaLaunchKernelEx(&cfg, kernel, *a);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <typename T>
+int launch(const void* x, const void* w, const void* b, void* y, int B, int C, int HW, int G,
+           float eps, int q, int threads, int rpc, int cap, int grid, int smem, void* stream) {
+  if (B <= 0 || C <= 0 || HW <= 0 || G <= 0 || C % G != 0 || (int64_t)B * G > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  constexpr int PV = 16 / sizeof(T);
+  const bool vec = HW % PV == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0;
+  const int pack = vec ? PV : 1, unit = pack * (int)sizeof(T);
+  const int64_t n = (int64_t)(C / G) * HW, units = n / pack, runs = (int64_t)B * G;
+  if (n >= (1LL << 31) - 8192) return (int)cudaErrorInvalidValue;  // int unit offsets
+  // the plan: q slices of a run (none empty) or rpc runs a CTA, whole warps a
+  // run; each slice kept in shared memory up to the ceiling, and nothing
+  // else there; a whole number of clusters, every run in one of them
+  if (!(q == 1 || q == 2 || q == 4 || q == kClusterC) || rpc < 1 || (q > 1 && rpc > 1) ||
+      threads < 32 || threads > kThreadsC || threads % rpc != 0 || (threads / rpc) % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int64_t slice = (units + q - 1) / q, room = kSmemMaxC / ((int64_t)rpc * unit);
+  if ((int64_t)(q - 1) * slice >= units || cap != (slice < room ? slice : room) ||
+      (int64_t)smem != (int64_t)rpc * cap * unit || (int64_t)grid != (runs + rpc - 1) / rpc * q)
+    return (int)cudaErrorInvalidValue;
+  NchwArgs a;
+  a.x = x;
+  a.y = y;
+  a.w = static_cast<const float*>(w);
+  a.b = static_cast<const float*>(b);
+  a.n = n;
+  a.G = G;
+  a.cg = C / G;
+  a.upc = HW / pack;
+  a.runs = (int)runs;
+  a.q = q;
+  a.rpc = rpc;
+  a.tpr = threads / rpc;
+  a.slice = (int)slice;
+  a.cap = cap;
+  a.eps = eps;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return vec ? nchw_launch<T, true>(&a, q, threads, grid, smem, s, nullptr)
+             : nchw_launch<T, false>(&a, q, threads, grid, smem, s, nullptr);
+}
+
+}  // namespace
+
+// x, y: [B, C, H, W] with HW = H * W; w, b: [C] f32.  q, threads, rpc, cap,
+// grid and smem are the plan of ops/gn_silu.py::nchw_plan, which the
+// launcher checks.
+extern "C" int gn_silu_f32(const void* x, const void* w, const void* b, void* y, int B, int C,
+                           int HW, int G, float eps, int q, int threads, int rpc, int cap,
+                           int grid, int smem, void* stream) {
+  return launch<float>(x, w, b, y, B, C, HW, G, eps, q, threads, rpc, cap, grid, smem, stream);
+}
+
+extern "C" int gn_silu_bf16(const void* x, const void* w, const void* b, void* y, int B, int C,
+                            int HW, int G, float eps, int q, int threads, int rpc, int cap,
+                            int grid, int smem, void* stream) {
+  return launch<__nv_bfloat16>(x, w, b, y, B, C, HW, G, eps, q, threads, rpc, cap, grid, smem,
+                               stream);
+}
+
+// The clusters of q CTAs that the card holds at once for the NCHW kernel of
+// element size elem (2 or 4), 16-byte packs or not, with `threads` a CTA and
+// `smem` bytes of staging: cudaOccupancyMaxActiveClusters.
+extern "C" int gn_silu_nchw_max_clusters(int elem, int vec, int threads, int q, int smem,
+                                         int* clusters) {
+  if (q < 2 || q > kClusterC || threads < 32 || threads > kThreadsC || smem < 0 ||
+      smem > kSmemMaxC || !(elem == 2 || elem == 4))
+    return (int)cudaErrorInvalidValue;
+  if (elem == 4)
+    return vec ? nchw_launch<float, true>(nullptr, q, threads, q, smem, 0, clusters)
+               : nchw_launch<float, false>(nullptr, q, threads, q, smem, 0, clusters);
+  return vec ? nchw_launch<__nv_bfloat16, true>(nullptr, q, threads, q, smem, 0, clusters)
+             : nchw_launch<__nv_bfloat16, false>(nullptr, q, threads, q, smem, 0, clusters);
 }
 
 // x, y: [B, H, W, C4]; scale, bias: [C4] f32; group_of: [C4] int32 in [0, G);

@@ -5,7 +5,8 @@ plain PyTorch versions, in two layouts.
   ``sddm_tpu/experimental/pallas_groupnorm_swish.py`` (``group_norm_swish``)
   and of the flax ``GroupNorm`` -> swish prologue of
   ``sddm_tpu/models/blocks.py::Block``.  A (batch row, group) is one
-  contiguous run of ``C / G * H * W`` values.
+  contiguous run of ``C / G * H * W`` values.  One launch per call, a large
+  run split across a thread-block cluster; its plan is :func:`nchw_plan`.
 - :func:`gn_silu_nhwc`, NHWC ``[B, H, W, C4]``: counterpart of
   ``sddm_tpu/experimental/pallas_gn_silu.py`` (``gn_silu``), the
   ``_GN`` -> silu (-> offset mask) chain of the packed engine
@@ -30,18 +31,33 @@ from .cuda_build import CSRC, CudaLibrary
 from .packed import offset_mask
 
 SOURCE = CSRC / "gn_silu.cu"
-_NCHW_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+_NCHW_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float]
+              + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 _NHWC_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
               + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 _LIB = CudaLibrary(SOURCE, {
     "gn_silu_f32": _NCHW_ARGS, "gn_silu_bf16": _NCHW_ARGS,
     "gn_silu_nhwc_f32": _NHWC_ARGS, "gn_silu_nhwc_bf16": _NHWC_ARGS,
+    "gn_silu_nchw_max_clusters": [ctypes.c_int] * 5 + [ctypes.c_void_p],
 })
 _MAX_CHANNELS, _MAX_GROUPS = 4096, 1024  # the NHWC statistics' shared memory
 # The NHWC kernel's constants (csrc/gn_silu.cu: kThreadsN, kSmemMaxN): one block
 # of 512 threads per SM, 227 KB of shared memory a block.
 _THREADS_N, _SMEM_MAX = 512, 232448
 _MIN_RANGE_BYTES = 16384  # a range of positions is split no finer than this
+# The NCHW kernel's constants (csrc/gn_silu.cu: kThreadsC, kClusterC, kSmemMaxC):
+# at most 512 threads a CTA and 8 CTAs a cluster; the shared memory a CTA keeps
+# its slice in, at most.
+_THREADS_C, _CLUSTER_C, _SMEM_MAX_C = 512, 8, 231424
+# The NCHW plan, in units (what one load moves: a 16-byte pack, or one
+# element): a run of more than _SLICE_UNITS is split across a cluster, at
+# most _SLICE_UNITS a CTA where 8 CTAs suffice; a run is spread further
+# across a card that would otherwise idle, down to _MIN_SLICE_UNITS a CTA.  A
+# slice of up to 256 units takes a thread for every 2, up to 1024 for every
+# 4, a larger one for every 8, whole warps up to 512 threads (the fastest
+# of the plans timed at the flagship's sites on an H100); small runs share a
+# CTA up to _CTA_THREADS.
+_SLICE_UNITS, _MIN_SLICE_UNITS, _CTA_THREADS = 4096, 256, 256
 
 
 def build() -> dict:
@@ -76,7 +92,7 @@ def _check(x, weight, bias, num_groups):
     b, c, h, w = x.shape
     if x.numel() == 0 or c % num_groups != 0:
         raise ValueError(f"bad shape {tuple(x.shape)} for {num_groups} groups")
-    if h * w >= 2**31 or b * num_groups >= 2**31:
+    if h * w >= 2**31 or b * num_groups >= 2**31 or c // num_groups * h * w >= 2**31 - 2**13:
         raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's int32 sizes")
     for name, p in (("weight", weight), ("bias", bias)):
         if p.dtype != torch.float32 or p.shape != (c,) or not p.is_contiguous():
@@ -85,11 +101,77 @@ def _check(x, weight, bias, num_groups):
             raise ValueError(f"{name} is on {p.device}, input on {x.device}")
 
 
+class NchwPlan(NamedTuple):
+    """The launch of one :func:`gn_silu` call (``csrc/gn_silu.cu``,
+    ``gn_silu_nchw``).  A run (one batch row's group) is ``cg * H * W /
+    pack`` units: loads of 16 bytes, or of one element where the 16-byte
+    path does not apply.  With ``q > 1`` the ``q`` CTAs of cluster ``r``
+    split run ``r`` into slices of ``slice`` units (the last may be
+    shorter); with ``q == 1`` CTA ``i`` takes ``runs`` consecutive runs,
+    ``threads / runs`` threads each.  A CTA keeps the first ``cap`` units of
+    each of its slices in shared memory, ``packs`` units a thread, and reads
+    the ``reread`` units after them from device memory twice."""
+
+    q: int          # CTAs of a cluster: 1, 2, 4 or 8
+    threads: int    # threads of a CTA
+    runs: int       # runs of a CTA (q == 1 only)
+    grid: int       # CTAs launched, a whole number of clusters
+    smem: int       # dynamic shared memory of a CTA, bytes
+    slice: int      # units of a CTA's slice of its run
+    cap: int        # units of a slice kept in shared memory
+    packs: int      # units a thread keeps in shared memory
+    reread: int     # units of a slice read twice: slice - cap
+
+
+@functools.lru_cache(maxsize=512)
+def nchw_plan(b: int, c: int, hw: int, g: int, elem: int, vec: bool, sms: int) -> NchwPlan:
+    """The plan of one NCHW call of ``b`` rows, ``c`` channels, ``hw``
+    positions and ``g`` groups, elements of ``elem`` bytes, on a card of
+    ``sms`` SMs.  ``vec``: the kernel moves 16-byte packs (else one element
+    a load).  A run of more than ``_SLICE_UNITS`` goes to a cluster of q
+    CTAs, the fewest that bring a slice to ``_SLICE_UNITS`` (at most 8);
+    fewer runs than SMs spread over more CTAs, none under
+    ``_MIN_SLICE_UNITS``; a thread takes 2, 4 or 8 units of a slice, more
+    of a larger one, and small runs share a CTA while the card keeps a CTA
+    on each SM.  A CTA keeps its slices in shared memory up to
+    ``_SMEM_MAX_C`` bytes; what does not fit is read twice."""
+    pack = 16 // elem if vec else 1
+    unit = pack * elem
+    units = c // g * hw // pack
+    runs = b * g
+    q = 1
+    while q < _CLUSTER_C and -(-units // q) > _SLICE_UNITS:
+        q *= 2
+    while q < _CLUSTER_C and runs * q < sms and -(-units // (2 * q)) >= _MIN_SLICE_UNITS:
+        q *= 2
+    sl = -(-units // q)
+    per_thread = 2 if sl <= 256 else 4 if sl <= 1024 else 8
+    tpr = min(_THREADS_C, -(-sl // (32 * per_thread)) * 32)
+    rpc = 1
+    if q == 1:
+        while 2 * rpc * tpr <= _CTA_THREADS and -(-runs // (2 * rpc)) >= sms:
+            rpc *= 2
+    cap = min(sl, _SMEM_MAX_C // (rpc * unit))
+    return NchwPlan(q, tpr * rpc, rpc, -(-runs // rpc) * q, rpc * cap * unit, sl, cap,
+                    -(-cap // tpr), sl - cap)
+
+
+def nchw_max_clusters(plan: NchwPlan, elem: int, vec: bool) -> int:
+    """``cudaOccupancyMaxActiveClusters`` for ``plan``'s kernel and cluster
+    size on the current card (``plan.q > 1``)."""
+    n = ctypes.c_int(0)
+    rc = _LIB.get().gn_silu_nchw_max_clusters(elem, int(vec), plan.threads, plan.q, plan.smem,
+                                              ctypes.addressof(n))
+    if rc != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA error {rc} ({plan})")
+    return n.value
+
+
 def gn_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             num_groups: int, eps: float = 1e-5) -> torch.Tensor:
     """SiLU(GroupNorm(x)) for NCHW ``x`` (f32 or bf16) with f32 ``weight``
-    and ``bias`` of shape ``[C]``.  CUDA tensors run the kernel;
-    ``gn_silu.launches`` counts its launches."""
+    and ``bias`` of shape ``[C]``.  CUDA tensors run the kernel, one launch
+    planned by :func:`nchw_plan`; ``gn_silu.launches`` counts its launches."""
     if x.device.type == "cpu":
         return gn_silu_reference(x, weight, bias, num_groups, eps)
     if x.device.type != "cuda":
@@ -99,12 +181,15 @@ def gn_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     fn = lib.gn_silu_bf16 if x.dtype == torch.bfloat16 else lib.gn_silu_f32
     y = torch.empty_like(x)
     b, c, h, w = x.shape
+    elem = x.element_size()
+    vec = (h * w) % (16 // elem) == 0 and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
+    plan = nchw_plan(b, c, h * w, num_groups, elem, vec, _sm_count(x.device))
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-                b, c, h * w, num_groups, eps,
-                torch.cuda.current_stream(x.device).cuda_stream)
+                b, c, h * w, num_groups, eps, plan.q, plan.threads, plan.runs, plan.cap,
+                plan.grid, plan.smem, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"gn_silu kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"gn_silu kernel launch failed: CUDA error {rc} (plan {plan})")
     gn_silu.launches += 1
     return y
 
