@@ -97,6 +97,35 @@ Then the DiffWave vocoder (SDDM_spectrogram + FusedDiffWave, the committed
      time under its kernels' names), and the idle share against the
      unprofiled serve of phase 18.
 
+Then the flagship's file-to-score path, through the port's entry points in a
+temporary directory outside the checkout:
+ 20. ``python -m sddm_tpu_torch.make_synthetic_corpus`` writes the v1 test
+     split (200 utterances; --seed 2026, so the test split's seed is 2027);
+     its noisy side, padded to whole rows and written as ``infer`` writes it,
+     is scored by ``evaluate``; its means must lie within ``NOISY_LIMITS`` of
+     the committed ``noisy_*.npy`` of ``artifacts/flagship_synth/
+     eval_fewstep/anc12`` (the largest one-file differences are printed);
+ 21. ``python -m sddm_tpu_torch.infer`` (run in this process, so that the
+     kernels' counts can be read) on the flagship's config and checkpoint with
+     the dataset on that corpus and ``--steps 12``: ancestral-12, the packed
+     engine, bf16, the config's loader (2 files a batch, 2 workers, each
+     batch served at its own row count); ``gn_silu_nhwc`` launches equal to
+     33 x 12 x sampler calls, every row of the corpus served once, every
+     sampler output finite, and the output means of its ``evaluate`` within
+     ``OUTPUT_LIMITS`` of the committed ``output_*.npy``; then again with the
+     sampler's generator seeded 1, and once in float32, whose means are
+     printed beside them; the serve and scoring seconds; then the NHWC
+     kernel held against its plain version at every packed site at each row
+     count the CLI's sampler calls had, float32 and bfloat16, every call
+     repeated bit for bit;
+ 22. the same CLI with ``"packed": false`` over the same 200 files: the plain
+     engine, ``gn_silu`` launches equal to 33 x 12 x sampler calls, finite
+     outputs, its means held to the same limits, and the paired mean SI-SNR
+     difference from [21]; the NCHW kernel held against its plain version at
+     every plain site at each row count it was served; then ``python -m
+     sddm_tpu_torch.evaluate_results <[21]'s samples> --load``, whose summary
+     must equal [21]'s ``evaluate`` result.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing of JAX
 or of the JAX package.
@@ -108,8 +137,10 @@ import concurrent.futures
 import contextlib
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -180,6 +211,29 @@ DW_E2E_TOL = {"float32": (1e-6, 6e-6), "bfloat16": (2e-2, 0.15)}
 # one float32 DiffWave forward on the card (kernel, TF32 off) vs the CPU port
 # (plain DiffWave): read 1.2e-6.
 DW_CARD_VS_CPU_TOL = 5e-6
+
+# the file-to-score path (phases 20-22): the committed ancestral-12 quality
+# table of the flagship (packed engine, bf16, TPU v5e outputs) over the v1
+# test split of the synthetic corpus, which make_synthetic_corpus writes at
+# --seed + 1
+ANC12 = RUN / "eval_fewstep" / "anc12"
+CORPUS_FILES, CORPUS_SEED, CORPUS_VERSION = 200, 2026, 1
+GATED_METRICS = ("sisnr", "stoi", "pesq_wb_approx")
+# Limits on the difference of 200-file means from the committed means, stated
+# before the first run.  Noisy side, the regenerated corpus against the
+# committed noisy_*.npy: with numpy 2.0.2 and scipy 1.17.0 the JAX package's
+# own generator and scorers read -0.013 dB, +0.0064 and -0.0093 (single files
+# up to 0.056 dB, 0.72 STOI), while on an H100 machine the port regenerated
+# the committed vectors to 1e-7; phase 20 prints the libraries' versions.
+NOISY_LIMITS = {"sisnr": 0.05, "stoi": 0.015, "pesq_wb_approx": 0.03}
+# Served outputs against the committed output_*.npy (17.705 dB, 0.503, 4.324):
+# the JAX records put the sampler's seed spread at +-0.04 dB, +-0.0003 STOI and
+# +-0.0025 pesq; 0.5 dB is about ten times that and still catches a fault the
+# size of the known reduced-precision one (0.75 dB); STOI is wider because the
+# v1 corpus degenerates under it.
+# The plain engine (phase 22) serves the same recipe and is held to the same
+# limits; the float32 run of phase 21 is a witness, printed and not gated.
+OUTPUT_LIMITS = {"sisnr": 0.5, "stoi": 0.02, "pesq_wb_approx": 0.05}
 
 
 def log(msg: str = "") -> None:
@@ -771,6 +825,123 @@ def packed_sites(engine, num_samples: int, device):
     return sites
 
 
+def net_sites(network, num_samples: int, device):
+    """[((C, H, W), G)] of one forward of the plain network, in call order."""
+    import torch
+
+    from sddm_tpu_torch.models.blocks import GroupNormSiLU
+
+    sites = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a: sites.append((tuple(a[0].shape[1:]), m.num_groups)))
+        for m in network.modules() if isinstance(m, GroupNormSiLU)]
+    with torch.no_grad(), plain_gn_silu():
+        z = torch.zeros(1, 1, num_samples, device=device)
+        network(z, z, torch.ones(1, 1, 1, device=device))
+    for h in hooks:
+        h.remove()
+    return sites
+
+
+def check_nchw(shape, g: int, spread: float, gen, sms: int):
+    """``gn_silu`` at one NCHW shape on seeded x, scale and bias (spread < 1:
+    near-constant groups at 1000, where finite is the check), in float32 and
+    bfloat16: the output's dtype, shape and finiteness, each call repeated
+    bit for bit, and the output held against ``gn_silu_reference`` at
+    ``TOL``.  Returns [(dtype name, ok, max |d|, the call's plan as text)]."""
+    import torch
+
+    from sddm_tpu_torch.ops.gn_silu import gn_silu, gn_silu_reference, nchw_plan
+
+    device, c = gen.device, shape[1]
+    w = (1 + 0.5 * torch.randn(c, device=device, generator=gen)).contiguous()
+    b = (0.2 * torch.randn(c, device=device, generator=gen)).contiguous()
+    x32 = torch.randn(shape, device=device, generator=gen) * 2 * spread
+    x32 += (1000.0 if spread < 1 else 0.3) + 0.5 * torch.randn(
+        (1, c, 1, 1), device=device, generator=gen)
+    readings = []
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        x = x32.to(dtype).contiguous()
+        got = gn_silu(x, w, b, g)
+        want = gn_silu_reference(x, w, b, g)
+        torch.cuda.synchronize()
+        if got.dtype != dtype or got.shape != x.shape or not torch.isfinite(got).all():
+            fail(f"kernel output at {shape} {dtype_name}: dtype {got.dtype}, "
+                 f"finite {bool(torch.isfinite(got).all())}")
+        if not torch.equal(gn_silu(x, w, b, g), got):
+            fail(f"gn_silu is not deterministic at {shape} {dtype_name}")
+        if spread < 1:  # the clamp case: finite is the check
+            continue
+        ok, err = close_enough(got, want, *TOL[dtype_name])
+        hw, elem = shape[2] * shape[3], x.element_size()
+        plan = nchw_plan(shape[0], c, hw, g, elem, hw % (16 // elem) == 0, sms)
+        readings.append((dtype_name, ok, err, nchw_plan_text(plan)))
+    return readings
+
+
+def check_nhwc(shape, groups: int, group_of, count: int, offset: bool, spread: float, gen,
+               sms: int):
+    """``gn_silu_nhwc`` at one packed shape, as ``check_nchw`` checks
+    ``gn_silu``: seeded x (zeroed outside the offset grid at offset sites, as
+    the engine zeroes it), float32 and bfloat16, each call repeated bit for
+    bit, held against ``gn_silu_nhwc_reference`` at ``TOL``.  Returns
+    [(dtype name, ok, max |d|, the call's ``nhwc_plan``)]."""
+    import torch
+
+    from sddm_tpu_torch.ops.gn_silu import gn_silu_nhwc, gn_silu_nhwc_reference, nhwc_plan
+    from sddm_tpu_torch.ops.packed import offset_mask
+
+    device, c4 = gen.device, shape[-1]
+    sc = (1 + 0.5 * torch.randn(c4, device=device, generator=gen)).contiguous()
+    bi = (0.2 * torch.randn(c4, device=device, generator=gen)).contiguous()
+    x32 = torch.randn(shape, device=device, generator=gen) * 2 * spread
+    x32 += (1000.0 if spread < 1 else 0.3) + 0.5 * torch.randn(c4, device=device, generator=gen)
+    if offset:  # the engine zeroes the out-of-range rows/cols before the GN
+        x32 *= torch.from_numpy(offset_mask(shape[1], shape[2], c4 // 4)).to(device)
+    readings = []
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        x = x32.to(dtype).contiguous()
+        got = gn_silu_nhwc(x, sc, bi, group_of, groups, count, offset)
+        torch.cuda.synchronize()
+        want = gn_silu_nhwc_reference(x, sc, bi, group_of, groups, count, offset)
+        if got.dtype != dtype or got.shape != x.shape or not torch.isfinite(got).all():
+            fail(f"gn_silu_nhwc output at {shape} {dtype_name}: dtype {got.dtype}, "
+                 f"finite {bool(torch.isfinite(got).all())}")
+        if not torch.equal(gn_silu_nhwc(x, sc, bi, group_of, groups, count, offset), got):
+            fail(f"gn_silu_nhwc is not deterministic at {shape} {dtype_name}")
+        if spread < 1:  # the clamp case: finite is the check
+            continue
+        ok, err = close_enough(got, want, *TOL[dtype_name])
+        plan = nhwc_plan(*shape, groups, x.element_size(),
+                         c4 % (16 // x.element_size()) == 0, sms)
+        readings.append((dtype_name, ok, err, plan))
+    return readings
+
+
+def hold_served_rows(phase: str, name: str, row_counts, checks) -> dict:
+    """A kernel held against its plain version at the shapes a CLI run gave
+    it: ``checks(rows)`` yields (shape, ``check_nchw``/``check_nhwc``
+    readings) for every site at ``rows`` batch rows, and is called for each
+    row count of the run's sampler calls.  One line a row count; fails on a
+    reading over ``TOL``.  Returns {dtype name: max |d|}."""
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for rows in sorted(set(row_counts)):
+        seen, n_sites = {"float32": 0.0, "bfloat16": 0.0}, 0
+        for shape, readings in checks(rows):
+            n_sites += 1
+            for dtype_name, ok, err, _plan in readings:
+                seen[dtype_name] = max(seen[dtype_name], err)
+                if not ok:
+                    fail(f"[{phase}] {name} disagrees with its plain version at the served "
+                         f"shape {shape} {dtype_name}: max|d| {err} (atol, rtol "
+                         f"{TOL[dtype_name]})")
+        log(f"    {name} vs its plain version at the {n_sites} sites with {rows} rows: max|d| "
+            f"f32 {seen['float32']:.3e}, bf16 {seen['bfloat16']:.3e} (atol, rtol {TOL}) ok; "
+            "every call repeated bit for bit")
+        worst = {k: max(worst[k], seen[k]) for k in worst}
+    return worst
+
+
 def packed_phases(device, config, net_args, audios, plain_enh, gen) -> tuple:
     """Phases 9-13 (the packed engine, ``load_enhancer``'s default); returns
     its kernel record and its serve record.  A reading over its limit is
@@ -847,34 +1018,13 @@ def packed_phases(device, config, net_args, audios, plain_enh, gen) -> tuple:
     max_err = {"float32": 0.0, "bfloat16": 0.0}
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     for shape, groups, group_of, count, offset, spread, label in cases:
-        c4 = shape[-1]
         if label == "ranges start mid-row":
             p = nhwc_plan(*shape, groups, 2, True, sms)
             if all(i * p.rows % shape[2] == 0 for i in range(1, p.k)):
                 fail(f"no range of the plan {p} starts mid-row at {shape}")
-        sc = (1 + 0.5 * torch.randn(c4, device=device, generator=gen)).contiguous()
-        bi = (0.2 * torch.randn(c4, device=device, generator=gen)).contiguous()
-        x32 = torch.randn(shape, device=device, generator=gen) * 2 * spread
-        x32 += (1000.0 if spread < 1 else 0.3) + 0.5 * torch.randn(
-            c4, device=device, generator=gen)
-        if offset:  # the engine zeroes the out-of-range rows/cols before the GN
-            x32 *= mask(*shape[1:])
-        for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            x = x32.to(dtype).contiguous()
-            got = gn_silu_nhwc(x, sc, bi, group_of, groups, count, offset)
-            torch.cuda.synchronize()
-            want = gn_silu_nhwc_reference(x, sc, bi, group_of, groups, count, offset)
-            if got.dtype != dtype or got.shape != x.shape or not torch.isfinite(got).all():
-                fail(f"gn_silu_nhwc output at {shape} {dtype_name}: dtype {got.dtype}, "
-                     f"finite {bool(torch.isfinite(got).all())}")
-            if not torch.equal(gn_silu_nhwc(x, sc, bi, group_of, groups, count, offset), got):
-                fail(f"gn_silu_nhwc is not deterministic at {shape} {dtype_name}")
-            if spread < 1:  # the clamp case: finite is the check
-                continue
-            ok, err = close_enough(got, want, *TOL[dtype_name])
+        for dtype_name, ok, err, p in check_nhwc(shape, groups, group_of, count, offset,
+                                                 spread, gen, sms):
             max_err[dtype_name] = max(max_err[dtype_name], err)
-            p = nhwc_plan(*shape, groups, x.element_size(),
-                          c4 % (16 // x.element_size()) == 0, sms)
             log(f"    {label:22s} {str(shape):20s} G={groups:<3d} count={count:<3d} "
                 f"{'offset' if offset else 'plain ':6s} {dtype_name:8s} max|d|={err:.3e} "
                 f"{'ok' if ok else 'OVER'}  K={p.k} grid={p.grid}x{p.per_block} staged "
@@ -1096,6 +1246,265 @@ def packed_phases(device, config, net_args, audios, plain_enh, gen) -> tuple:
     return kernel_record, serve_record
 
 
+def mean_scores(samples) -> dict:
+    """{metric: (noisy mean, output mean)} of the per-file vectors that
+    ``evaluate`` saved in ``samples``, over ``GATED_METRICS``."""
+    import numpy as np
+
+    return {m: (float(np.load(samples / f"noisy_{m}.npy").mean()),
+                float(np.load(samples / f"output_{m}.npy").mean())) for m in GATED_METRICS}
+
+
+def run_infer(argv, seed: int = 0) -> dict:
+    """``python -m sddm_tpu_torch.infer`` with ``argv``, run in this process
+    so that the kernels' counts can be read, with the sampler's generator
+    seeded ``seed``.  Returns evaluate's ``result``, the ``samples`` dir, the
+    batch ``rows`` of every sampler call, ``serve_s`` and ``score_s``, and
+    the ``network`` the CLI served.  Every sampler output must be finite
+    (the WAVs are PCM16, where a NaN no longer shows).  Serve seconds are the
+    CLI's wall time without ``evaluate``: the dataset, the checkpoint's load
+    and packing, and the sampler over every batch."""
+    import torch
+
+    from sddm_tpu_torch import infer as infer_cli
+    from sddm_tpu_torch.models.sddm import SDDM
+
+    config, parsed = infer_cli.parse_args(argv)
+    rows, scoring, built = [], [], []
+    sampler, score, build = SDDM.infer, infer_cli.evaluate, infer_cli.build_model
+
+    def counted_infer(self, condition, *args, **kwargs):
+        out = sampler(self, condition, *args, **kwargs)
+        if not bool(torch.isfinite(out).all()):
+            fail(f"{argv}: sampler call {len(rows)} gave a non-finite output")
+        if out.shape != condition.shape:
+            fail(f"{argv}: sampler call {len(rows)} gave {tuple(out.shape)} for "
+                 f"{tuple(condition.shape)}")
+        rows.append(out.shape[0])
+        return out
+
+    def timed_evaluate(*args, **kwargs):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = score(*args, **kwargs)
+        scoring.append(time.perf_counter() - start)
+        return out
+
+    def kept_model(*args, **kwargs):
+        built.append(build(*args, **kwargs))
+        return built[-1]
+
+    start = time.perf_counter()
+    with routed(SDDM, "infer", counted_infer), routed(infer_cli, "evaluate", timed_evaluate), \
+            routed(infer_cli, "build_model", kept_model):
+        result = infer_cli.main(config, continuous=parsed.continuous, num_steps=parsed.steps,
+                                ddim_eta=parsed.ddim, seed=seed)
+    total = time.perf_counter() - start
+    return {"result": result, "samples": config.save_dir / "samples", "rows": rows,
+            "serve_s": total - scoring[0], "score_s": scoring[0],
+            "network": built[0].network}
+
+
+def cli_config(work: Path, name: str, data_root: Path, packed: bool,
+               dtype: str = "bfloat16") -> Path:
+    """The flagship's config for one CLI run, written under ``work``: its
+    ``infer_dataset`` on ``data_root``, its run dir under ``work``, and
+    ``"packed"`` and ``"dtype"`` set as asked.  (``-c`` overlays the checkpoint's run-dir
+    config key by key, so a key left out would keep the run dir's value.)"""
+    config = json.loads((RUN / "config.json").read_text())
+    config["name"] = name
+    config["infer_dataset"]["args"]["data_root"] = str(data_root)
+    config["trainer"]["save_dir"] = str(work / "saved")
+    config["packed"] = packed
+    config["dtype"] = dtype
+    path = work / f"{name}.json"
+    path.write_text(json.dumps(config))
+    return path
+
+
+def file_to_score_phases(work: Path, smi: str, device) -> dict:
+    """Phases 20-22: the v1 test split through the port's corpus generator,
+    ``infer`` and ``evaluate`` on the card, held against the committed
+    ancestral-12 quality table, and each GroupNorm kernel held against its
+    plain version at the shapes the CLI gave it.  Returns the kernels'
+    launch counts and the record of the phases."""
+    import collections
+    import os
+
+    import numpy as np
+    import torch
+
+    from sddm_tpu_torch import evaluate_results, make_synthetic_corpus
+    from sddm_tpu_torch.data import InferDataset
+    from sddm_tpu_torch.data.wav_io import save_wav
+    from sddm_tpu_torch.evaluate import evaluate
+    from sddm_tpu_torch.ops.gn_silu import gn_silu, gn_silu_nhwc
+
+    committed = {m: (np.load(ANC12 / f"noisy_{m}.npy"), np.load(ANC12 / f"output_{m}.npy"))
+                 for m in GATED_METRICS}
+    checkpoint = RUN / "model_best.ckpt"
+    config = json.loads((RUN / "config.json").read_text())
+    sr, ns = config["sample_rate"], config["num_samples"]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    # -- 20. the corpus, and its noisy side as infer writes it ----------------
+    start = time.perf_counter()
+    make_synthetic_corpus.main(["--root", str(work / "synth"), "--n-train", "0",
+                                "--n-test", str(CORPUS_FILES), "--seed", str(CORPUS_SEED),
+                                "--version", str(CORPUS_VERSION)])
+    gen_s = time.perf_counter() - start
+    test_root = work / "synth" / "test"
+    noisy_side = work / "noisy_side"
+    dataset = InferDataset(test_root, ".wav", sr, ns)
+    (noisy_side / "output").mkdir(parents=True)
+    n_rows = 0
+    for i in range(len(dataset)):  # padded to whole rows and written as infer writes them
+        clean, noisy, _ = dataset[i]
+        n_rows += clean.size // ns
+        name = f"{dataset.get_name(i)}.wav"
+        save_wav(noisy_side / "target" / name, clean.reshape(1, -1), sr)
+        save_wav(noisy_side / "condition" / name, noisy.reshape(1, -1), sr)
+        os.symlink(noisy_side / "condition" / name, noisy_side / "output" / name)
+    start = time.perf_counter()
+    scored = evaluate(noisy_side, ".wav", sr, {"pesq_wb", "sisnr", "stoi"})
+    noisy_score_s = time.perf_counter() - start
+    if not all(m in scored for m in GATED_METRICS):
+        fail(f"evaluate reported {sorted(scored)}, not {GATED_METRICS}: the committed table "
+             "holds pesq_wb_approx, which evaluate reports only without the C pesq library")
+    import scipy
+
+    log(f"[20] corpus: v{CORPUS_VERSION} test split, {len(dataset)} utterances ({n_rows} rows "
+        f"of {ns}) at seed {CORPUS_SEED + 1} (make_synthetic_corpus --seed {CORPUS_SEED}) in "
+        f"{gen_s:.1f} s (numpy {np.__version__}, scipy {scipy.__version__}); the noisy side "
+        f"scored in {noisy_score_s:.1f} s")
+    noisy_over, noisy_diffs = [], {}
+    for m in GATED_METRICS:
+        vec = np.load(noisy_side / f"noisy_{m}.npy")
+        want = committed[m][0]
+        d = float(vec.mean() - want.mean())
+        worst = int(np.abs(vec - want).argmax())
+        ok = abs(d) <= NOISY_LIMITS[m]
+        noisy_diffs[m] = {"mean": d, "largest_one_file": float(vec[worst] - want[worst])}
+        log(f"    noisy {m:15s} mean {vec.mean():.4f}, committed {want.mean():.4f}: "
+            f"{d:+.3e} (limit {NOISY_LIMITS[m]}) {'ok' if ok else 'OVER'}; largest one-file "
+            f"difference {vec[worst] - want[worst]:+.3e} at u{worst:04d}")
+        if not ok:
+            noisy_over.append(f"noisy {m} {d:+.4f}")
+    if noisy_over:
+        fail(f"the regenerated corpus misses the committed noisy means: {noisy_over}")
+
+    def serve_corpus(tag, name, packed, dtype, seed, kernel, other, sites_per_forward):
+        """One CLI run over the corpus; its kernel's launches read around it."""
+        argv = ["-c", str(cli_config(work, name, test_root, packed, dtype)),
+                "-r", str(checkpoint), "--steps", str(STEPS)]
+        gn_silu.launches = gn_silu_nhwc.launches = 0
+        run = run_infer(argv, seed=seed)
+        run["launches"], stray = kernel.launches, other.launches
+        rows = run["rows"]
+        expected = sites_per_forward * STEPS * len(rows)
+        run["means"] = mean_scores(run["samples"])
+        engine = "packed" if packed else "plain"
+        log(f"{tag} python -m sddm_tpu_torch.infer {' '.join(argv[2:])} ({engine} engine, "
+            f"{dtype}, generator seed {seed}): {len(rows)} sampler calls of "
+            f"{min(rows)}-{max(rows)} rows ({sum(rows)} rows), {run['launches']} launches "
+            f"(expected {sites_per_forward} x {STEPS} x {len(rows)} = {expected}), "
+            f"{stray} of the other GroupNorm kernel; serve {run['serve_s']:.1f} s, scoring "
+            f"{run['score_s']:.1f} s on {smi}")
+        per_call = config["infer_data_loader"]["args"]["batch_size"]
+        if len(rows) != math.ceil(CORPUS_FILES / per_call):
+            fail(f"the CLI made {len(rows)} sampler calls")
+        if sum(rows) != n_rows:
+            fail(f"the CLI served {sum(rows)} rows, the corpus has {n_rows}")
+        if run["launches"] != expected or stray != 0:
+            fail(f"the CLI's kernel launched {run['launches']} times (expected {expected}), "
+                 f"the other GroupNorm kernel {stray} (expected 0)")
+        return run
+
+    def gate(run, label):
+        """The run's output means against the committed table, seed 1 and the
+        float32 witness beside them; fails past ``OUTPUT_LIMITS``."""
+        over = []
+        for m in GATED_METRICS:
+            got = run["means"][m][1]
+            d = got - float(committed[m][1].mean())
+            ok = abs(d) <= OUTPUT_LIMITS[m]
+            beside = ", ".join(f"{k}: {r['means'][m][1]:.4f}" for k, r in runs.items()
+                               if r is not run)
+            log(f"    {label} output {m:15s} mean {got:.4f} ({beside}), committed "
+                f"{committed[m][1].mean():.4f} (TPU v5e): {d:+.4f} (limit {OUTPUT_LIMITS[m]}) "
+                f"{'ok' if ok else 'OVER'}")
+            if not ok:
+                over.append(f"{label} output {m} {d:+.4f}")
+        if over:
+            fail(f"the port's ancestral-12 output means miss the committed table: {over}")
+
+    # -- 21. the flagship through the CLI: ancestral-12, packed engine, bf16 ----
+    runs = {}
+    for label, seed, dtype in (("seed 0", 0, "bfloat16"), ("seed 1", 1, "bfloat16"),
+                               ("float32", 0, "float32")):
+        runs[label] = serve_corpus("[21]", f"anc12_{label.replace(' ', '')}", True, dtype,
+                                   seed, gn_silu_nhwc, gn_silu, PACKED_SITES)
+    if not all(np.array_equal(np.load(runs["seed 0"]["samples"] / f"noisy_{m}.npy"),
+                              np.load(noisy_side / f"noisy_{m}.npy")) for m in GATED_METRICS):
+        fail("the CLI's noisy vectors differ from phase 20's: target/condition were not "
+             "written as phase 20 wrote them")
+    gate(runs["seed 0"], "packed")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    engine = runs["seed 0"]["network"]
+    sites = packed_sites(engine, ns, device)
+    nhwc_served = hold_served_rows("21", NHWC_KERNEL, runs["seed 0"]["rows"], lambda rows: (
+        ((rows,) + hwc, check_nhwc((rows,) + hwc, m.groups, m.group_of, m.count, m.offset, 1.0,
+                                   gen, sms)) for m, hwc in sites))
+    for run in runs.values():
+        del run["network"]
+    del engine, sites
+
+    # -- 22. the plain engine over the same files; evaluate_results --load ------
+    plain = serve_corpus("[22]", "anc12_plain", False, "bfloat16", 0, gn_silu, gn_silu_nhwc,
+                         SITES_PER_FORWARD)
+    paired = float(np.mean(np.load(plain["samples"] / "output_sisnr.npy")
+                           - np.load(runs["seed 0"]["samples"] / "output_sisnr.npy")))
+    log(f"    plain vs packed engine, the same files and generator seed: paired mean output "
+        f"SI-SNR difference {paired:+.4f} dB")
+    gate(plain, "plain ")
+    distinct = sorted(set(net_sites(plain.pop("network"), ns, device)),
+                      key=lambda s: -math.prod(s[0]))
+    nchw_served = hold_served_rows("22", "gn_silu_nchw", plain["rows"], lambda rows: (
+        ((rows,) + chw, check_nchw((rows,) + chw, g, 1.0, gen, sms)) for chw, g in distinct))
+    summary = evaluate_results.main([str(runs["seed 0"]["samples"]), "--load", "--metrics",
+                                     *GATED_METRICS])
+    for m in GATED_METRICS:
+        want = runs["seed 0"]["result"][m]
+        if (summary[m]["output_mean"], summary[m]["noisy_mean"]) != (want["output"],
+                                                                     want["noisy"]):
+            fail(f"evaluate_results --load gave {summary[m]} for {m}, [21]'s evaluate {want}")
+    log(f"    python -m sddm_tpu_torch.evaluate_results <[21] samples> --load: the summary "
+        f"equals [21]'s evaluate for {', '.join(GATED_METRICS)}")
+
+    def kept(run):
+        return {"calls": len(run["rows"]), "rows": sum(run["rows"]),
+                "rows_per_call": dict(sorted(collections.Counter(run["rows"]).items())),
+                "launches": run["launches"], "serve_s": run["serve_s"],
+                "score_s": run["score_s"], "means": run["means"]}
+
+    committed_means = {m: [float(committed[m][0].mean()), float(committed[m][1].mean())]
+                       for m in GATED_METRICS}
+    record = {
+        "corpus": {"files": len(dataset), "rows": n_rows, "seed": CORPUS_SEED + 1,
+                   "version": CORPUS_VERSION, "generate_seconds": gen_s,
+                   "noisy_score_seconds": noisy_score_s, "numpy": np.__version__,
+                   "scipy": scipy.__version__},
+        "committed_noisy_output_means": committed_means,
+        "noisy_differences": noisy_diffs,
+        "anc12": {label: kept(run) for label, run in runs.items()},
+        "anc12_plain_engine": {**kept(plain), "paired_sisnr_difference_db": paired},
+        "served_shapes_max_abs_err": {NHWC_KERNEL: nhwc_served, "gn_silu_nchw": nchw_served},
+        "nvidia_smi": smi,
+    }
+    return {"nhwc_launches": runs["seed 0"]["launches"], "nchw_launches": plain["launches"],
+            "record": record}
+
+
 def requests(n: int = 4):
     """Seeded noisy requests of 1-3 s at 16 kHz: harmonic tones under a
     syllable-rate envelope plus white noise at 5 dB SNR."""
@@ -1131,7 +1540,6 @@ def main() -> int:
     import sddm_tpu_torch
     from sddm_tpu_torch import load_enhancer
     from sddm_tpu_torch.models import UNetModified2
-    from sddm_tpu_torch.models.blocks import GroupNormSiLU
     from sddm_tpu_torch.ops import diffwave_stack as dw_ops
     from sddm_tpu_torch.ops.gn_silu import (
         build,
@@ -1180,18 +1588,7 @@ def main() -> int:
     config = json.loads((RUN / "config.json").read_text())
     net_args = {k: v for k, v in config["network"]["args"].items() if k != "dropout"}
     probe = UNetModified2(num_samples=config["num_samples"], **net_args).to(device).eval()
-    sites = []
-
-    def record(module, args):
-        sites.append((tuple(args[0].shape[1:]), module.num_groups))
-
-    hooks = [m.register_forward_pre_hook(record)
-             for m in probe.modules() if isinstance(m, GroupNormSiLU)]
-    with torch.no_grad(), plain_gn_silu():
-        z = torch.zeros(1, 1, config["num_samples"], device=device)
-        probe(z, z, torch.ones(1, 1, 1, device=device))
-    for h in hooks:
-        h.remove()
+    sites = net_sites(probe, config["num_samples"], device)
     del probe
     if len(sites) != SITES_PER_FORWARD:
         fail(f"expected {SITES_PER_FORWARD} GroupNorm sites per forward, found {len(sites)}")
@@ -1209,30 +1606,10 @@ def main() -> int:
               ((16, 64, 257, 136), 32, 1.0),  # runs not a multiple of q packs (bf16 3 x 2185 + 2183)
               ((4, 8, 129, 129), 4, 1.0)]     # one element a load (H*W odd) on a cluster of 8
     for shape, g, spread in cases:
-        c = shape[1]
-        w = (1 + 0.5 * torch.randn(c, device=device, generator=gen)).contiguous()
-        b = (0.2 * torch.randn(c, device=device, generator=gen)).contiguous()
-        x32 = torch.randn(shape, device=device, generator=gen) * 2 * spread
-        x32 += (1000.0 if spread < 1 else 0.3) + 0.5 * torch.randn(
-            (1, c, 1, 1), device=device, generator=gen)
-        for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            x = x32.to(dtype).contiguous()
-            got = gn_silu(x, w, b, g)
-            want = gn_silu_reference(x, w, b, g)
-            torch.cuda.synchronize()
-            if got.dtype != dtype or got.shape != x.shape or not torch.isfinite(got).all():
-                fail(f"kernel output at {shape} {dtype_name}: dtype {got.dtype}, "
-                     f"finite {bool(torch.isfinite(got).all())}")
-            if not torch.equal(gn_silu(x, w, b, g), got):
-                fail(f"gn_silu is not deterministic at {shape} {dtype_name}")
-            if spread < 1:  # the clamp case: finite is the check
-                continue
-            ok, err = close_enough(got, want, *TOL[dtype_name])
+        for dtype_name, ok, err, plan in check_nchw(shape, g, spread, gen, sms):
             max_err[dtype_name] = max(max_err[dtype_name], err)
-            hw, elem = shape[2] * shape[3], x.element_size()
-            plan = nchw_plan(shape[0], c, hw, g, elem, hw % (16 // elem) == 0, sms)
             log(f"    {str(shape):22s} G={g:<3d} {dtype_name:8s} max|d|={err:.3e} "
-                f"{'ok' if ok else 'OVER'} (atol, rtol {TOL[dtype_name]})  {nchw_plan_text(plan)}")
+                f"{'ok' if ok else 'OVER'} (atol, rtol {TOL[dtype_name]})  {plan}")
             if not ok:
                 fail(f"kernel disagrees with gn_silu_reference at {shape} {dtype_name}")
 
@@ -1402,6 +1779,13 @@ def main() -> int:
 
     nhwc_record, packed_serve = packed_phases(device, config, net_args, audios, enh, gen)
     dw_record, dw_serve = vocoder_phases(device, dw_built)
+    del enh
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        f2s = file_to_score_phases(work, smi, device)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    nhwc_record["launches_file_to_score"] = f2s["nhwc_launches"]
 
     record_line = {"kernels": [{
         "name": "gn_silu",
@@ -1416,6 +1800,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "launches_file_to_score": f2s["nchw_launches"],
         "two_call_ms": two_call_ms,
         "shape": list(shape),
         "dtype": "bfloat16",
@@ -1431,6 +1816,7 @@ def main() -> int:
                               "gn_silu_profiled_launches": gn_calls}},
         "serve_packed": packed_serve,
         "serve_diffwave": dw_serve,
+        "file_to_score": f2s["record"],
         "build_seconds": {"gn_silu": built["seconds"], "diffwave_stack": dw_built["seconds"]},
         "nvidia_smi": smi}
     log(smi)

@@ -1,14 +1,19 @@
-"""Build the port's model objects from a config dict (counterpart of
-``sddm_tpu/cli.py::build_diffusion``, ``build_network`` and ``build_arch``,
-for the networks and composites the port serves)."""
+"""Shared CLI wiring (counterpart of ``sddm_tpu/cli.py``): the entry points'
+argument parser, and the builders of the model objects, datasets, loaders,
+loss and metrics from a config (a dict or a ``ConfigParser``), for the
+networks and composites the port serves."""
 
 from __future__ import annotations
 
+import argparse
 import inspect
 
 import torch
 
+from .data.loaders import DATA_LOADERS, DATASETS
 from .diffusion.schedule import DiffusionSchedule
+from .models.losses import get_loss
+from .models.metrics import get_metric
 from .models.diffwave import DiffWave
 from .models.diffwave_fused import FusedDiffWave
 from .models.sddm import SDDM, SDDM_spectrogram
@@ -16,6 +21,19 @@ from .models.unet_modified2 import UNetModified2
 from .ops.diffwave_stack import CHANNELS as STACK_CHANNELS
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def standard_argparser(description: str) -> argparse.ArgumentParser:
+    """``-c`` config, ``-r`` checkpoint to resume from, ``-d`` device."""
+    args = argparse.ArgumentParser(description=description)
+    args.add_argument("-c", "--config", default=None, type=str,
+                      help="config file path (default: None)")
+    args.add_argument("-r", "--resume", default=None, type=str,
+                      help="path to latest checkpoint (default: None)")
+    args.add_argument("-d", "--device", default=None, type=str,
+                      help="torch device (e.g. 'cpu'; default: the card); bare GPU "
+                           "indices, the reference's use of this slot, are ignored")
+    return args
 
 
 def build_diffusion(config) -> DiffusionSchedule:
@@ -93,3 +111,19 @@ def build_arch(config, diffusion, network, **kwargs) -> SDDM:
     if arch["type"] == "SDDM_spectrogram":
         return SDDM_spectrogram(diffusion, network, **args)
     raise NotImplementedError(arch["type"])
+
+
+def build_dataset(config, name: str, **kwargs):
+    return config.init_obj(name, DATASETS, **kwargs)
+
+
+def build_data_loader(config, name: str, dataset, **kwargs):
+    return config.init_obj(name, DATA_LOADERS, dataset, **kwargs)
+
+
+def build_loss(config):
+    return get_loss(config["loss"])
+
+
+def build_metrics(config):
+    return [get_metric(m) for m in config["metrics"]]

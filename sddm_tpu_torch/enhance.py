@@ -30,7 +30,7 @@ def resolve_device(device=None) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                               "to run on the CPU")
+                               "(on the command line: -d cpu) to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
 
@@ -97,6 +97,19 @@ class Enhancer:
         return self.enhance_batch([audio])[0]
 
 
+def load_unet_weights(network, checkpoint_path):
+    """Load a JAX ``UNetModified2`` checkpoint's weights into ``network``,
+    whose level structure (``channel_mults``, ``res_blocks``,
+    ``inner_channel``) comes from the built module, so that a config may
+    leave any of them to the module's default, as in the JAX package.
+    Returns ``network``."""
+    params = load_checkpoint(checkpoint_path)["params"]
+    network.load_state_dict(state_dict_from_jax(
+        params, channel_mults=network.channel_mults, res_blocks=network.res_blocks,
+        inner_channel=network.inner_channel))
+    return network
+
+
 def load_enhancer(checkpoint_path, config: dict, batch_rows: int = 16,
                   steps: int = 0, ddim: bool = False, device=None,
                   packed: bool = True) -> Enhancer:
@@ -113,14 +126,8 @@ def load_enhancer(checkpoint_path, config: dict, batch_rows: int = 16,
     ``load_enhancer`` does, and records why on the returned enhancer
     (``engine_fallback = "canary"``; None when nothing fell back)."""
     device = resolve_device(device)
-    net_args = config["network"]["args"]
     network = build_network(config, num_samples=config["num_samples"])
-    params = load_checkpoint(checkpoint_path)["params"]
-    network.load_state_dict(state_dict_from_jax(
-        params, channel_mults=net_args["channel_mults"],
-        res_blocks=net_args["res_blocks"], inner_channel=net_args["inner_channel"],
-    ))
-    network.to(device).eval()
+    load_unet_weights(network, checkpoint_path).to(device).eval()
     diffusion = build_diffusion(config)
 
     def fewstep(model):

@@ -102,14 +102,17 @@ class SDDM:
 
     @torch.no_grad()
     def infer(self, condition: torch.Tensor, generator: torch.Generator | None = None,
-              noise_stream=None) -> torch.Tensor:
+              noise_stream=None, *, return_trajectory: bool = False):
         """Run the reverse process from x_T to x_0 on ``condition``.
 
         ``noise_stream`` is ``(xT_noise, step_noises)`` with ``step_noises[i]``
         the N(0, 1) draw for step t = T - i; it replaces every draw from
         ``generator`` so that the chain can be compared elementwise with the
         JAX sampler fed the same stream.  A network with ``prepare`` and
-        ``prepare_condition`` hooks runs them once here, outside the loop."""
+        ``prepare_condition`` hooks runs them once here, outside the loop.
+        ``return_trajectory=True`` returns ``(x_0, traj)`` with ``traj`` every
+        step's state stacked, ``[T, B, ...]`` (``traj[-1]`` is x_0); the draws
+        are the same either way."""
         sched = self.diffusion.to(condition.device)
         xT_noise, step_noises = noise_stream if noise_stream is not None else (None, None)
         x = self._x_T(sched, condition, generator, xT_noise)
@@ -117,10 +120,20 @@ class SDDM:
         prep = prepare() if prepare is not None else None
         prepare_condition = getattr(self.network, "prepare_condition", None)
         cond_ctx = prepare_condition(prep, condition) if prepare_condition is not None else None
+        traj = []
         for i, t in enumerate(range(self.num_timesteps, 0, -1)):
             nz = step_noises[i] if step_noises is not None else None
             x = self._reverse_step(sched, condition, x, t, generator, nz, prep, cond_ctx)
+            if return_trajectory:
+                traj.append(x)
+        if return_trajectory:
+            return x, torch.stack(traj)
         return x
+
+    def sample_interval(self) -> int:
+        """The stride of the intermediate samples ``infer --continuous``
+        writes: ``1 | (T // 100)``."""
+        return 1 | (self.num_timesteps // 100)
 
 
 class SDDM_spectrogram(SDDM):
@@ -140,8 +153,10 @@ class SDDM_spectrogram(SDDM):
             return self.feature_fn(condition)
         return condition
 
-    def infer(self, condition, generator=None, noise_stream=None):
-        return super().infer(self._featurize(condition), generator, noise_stream)
+    def infer(self, condition, generator=None, noise_stream=None, *,
+              return_trajectory: bool = False):
+        return super().infer(self._featurize(condition), generator, noise_stream,
+                             return_trajectory=return_trajectory)
 
     def _x_T(self, sched, condition, generator=None, noise=None) -> torch.Tensor:
         if noise is not None:

@@ -221,3 +221,57 @@ def test_load_enhancer_falls_back_when_the_canary_fails(tmp_path, nets, caplog):
     assert type(enh.model.network) is UNetModified2 and enh.engine_fallback == "canary"
     assert any("canary" in r.getMessage() for r in caplog.records)
     assert not enh.validate()
+
+
+def test_load_enhancer_takes_the_level_structure_from_the_module(tmp_path, monkeypatch):
+    """A config that leaves ``inner_channel``, ``channel_mults`` and
+    ``res_blocks`` to the module's defaults (32, 1-5, 3) loads, as in JAX,
+    and serves JAX's function: the port's packed engine against JAX's
+    ``load_enhancer`` on the same config without ``"packed"``, under shared
+    noise, at the sampler tolerance."""
+    from sddm_tpu.enhance import load_enhancer as jax_load_enhancer
+
+    monkeypatch.setenv("SDDM_COMPILE_CACHE", os.environ.get("JAX_COMPILATION_CACHE_DIR",
+                                                            str(tmp_path / "jax_cache")))
+    ns = 528  # 32 frames of 32 samples: five levels of 2x downsampling
+    args = dict(in_channel=2, out_channel=1, norm_groups=4, dropout=0, segment_len=32,
+                segment_stride=16)
+    config = {**CONFIG, "num_samples": ns, "network": {"type": "UNetModified2", "args": args}}
+    jax_config = {k: v for k, v in config.items() if k != "packed"}
+    jnet = JaxUNet(num_samples=ns, **args)
+    params = jax.tree_util.tree_map(np.asarray, JaxSDDM(JaxSchedule.create(**SCHED), jnet)
+                                    .init(jax.random.PRNGKey(1), (1, 1, ns)))
+    path = _save(tmp_path / "model_best.ckpt", params, config)
+    enh = tenh.load_enhancer(path, json.loads(json.dumps(config)), batch_rows=1, steps=2,
+                             device="cpu")
+    net = enh.model.network.net
+    assert isinstance(enh.model.network, PackedUNetModified2)
+    assert (net.inner_channel, net.channel_mults, net.res_blocks) == (32, (1, 2, 3, 4, 5), 3)
+    jenh = jax_load_enhancer(path, jax_config, batch_rows=1, steps=2, packed=False)
+    rng = np.random.default_rng(7)
+    cond = rng.uniform(-0.5, 0.5, (1, 1, ns)).astype(np.float32)
+    xT = rng.standard_normal(cond.shape).astype(np.float32)
+    step_noises = rng.standard_normal((2,) + cond.shape).astype(np.float32)
+    want = np.asarray(jax.jit(jenh.model.infer)(
+        jenh.params, jax.random.PRNGKey(0), jnp.asarray(cond),
+        noise_stream=(jnp.asarray(xT), jnp.asarray(step_noises))))
+    got = enh.model.infer(torch.from_numpy(cond),
+                          noise_stream=(torch.from_numpy(xT), torch.from_numpy(step_noises)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_load_enhancer_runs_the_canary_once_and_serves_by_its_verdict(tmp_path, nets,
+                                                                     monkeypatch):
+    """The packed engine is served only after one canary call says so; the
+    loader has no option that skips it."""
+    path = _save(tmp_path / "model_best.ckpt", nets[2], CONFIG)
+    calls, verdict = [], [True]
+    monkeypatch.setattr(tenh.Enhancer, "validate",
+                        lambda self: calls.append(self) or verdict[0])
+    enh = tenh.load_enhancer(path, CONFIG, batch_rows=2, steps=2, device="cpu")
+    assert isinstance(enh.model.network, PackedUNetModified2) and enh.engine_fallback is None
+    assert calls == [enh]
+    verdict[0] = False
+    enh = tenh.load_enhancer(path, CONFIG, batch_rows=2, steps=2, device="cpu")
+    assert len(calls) == 2 and type(enh.model.network) is UNetModified2
+    assert enh.engine_fallback == "canary"

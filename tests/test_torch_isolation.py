@@ -36,7 +36,16 @@ def test_scan_covers_the_package():
     for expected in ("sddm_tpu_torch/ops/gn_silu.py", "sddm_tpu_torch/enhance.py",
                      "sddm_tpu_torch/train/checkpoints.py", "sddm_tpu_torch/ops/diffwave_stack.py",
                      "sddm_tpu_torch/specmodel.py", "sddm_tpu_torch/ops/packed.py",
-                     "sddm_tpu_torch/models/unet_packed.py", "chip_smoke.py"):
+                     "sddm_tpu_torch/models/unet_packed.py", "sddm_tpu_torch/infer.py",
+                     "sddm_tpu_torch/evaluate.py", "sddm_tpu_torch/evaluate_results.py",
+                     "sddm_tpu_torch/make_synthetic_corpus.py",
+                     "sddm_tpu_torch/utils/config.py", "sddm_tpu_torch/utils/logging.py",
+                     "sddm_tpu_torch/utils/util.py", "sddm_tpu_torch/data/wav_io.py",
+                     "sddm_tpu_torch/data/datasets.py", "sddm_tpu_torch/data/loaders.py",
+                     "sddm_tpu_torch/data/synth.py", "sddm_tpu_torch/ops/logaudio.py",
+                     "sddm_tpu_torch/ops/stoi.py", "sddm_tpu_torch/ops/pesq_approx.py",
+                     "sddm_tpu_torch/models/losses.py", "sddm_tpu_torch/models/metrics.py",
+                     "chip_smoke.py"):
         assert expected in names
 
 
