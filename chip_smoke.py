@@ -129,11 +129,13 @@ temporary directory outside the checkout:
 
 Then the flagship's training path, new with the training slice:
  23. hold the NCHW GroupNorm+SiLU backward kernel (``csrc/gn_silu_bwd.cu``,
-     two launches a call) against its plain backward at every site of the
+     one launch a call) against its plain backward at every site of the
      plain network, batch 16, float32 and bfloat16, plus B = 1, a constant
-     group, cg 3 with an odd H*W and a 5.2M-element run, every call repeated
-     bit for bit; its time at the largest site (CUDA events and the
-     profiler's device time) and over a step's 33 sites beside the bound of
+     group, cg 3 with an odd H*W and a 5.2M-element run (over what a
+     cluster keeps: the reread), every call repeated bit for bit and its
+     plan (``nchw_backward_plan``) printed; its time at the largest site
+     (CUDA events and the profiler's device time) and each site's device
+     time with its plan, summed over a step's 33 sites, beside the bound of
      the bytes it must move and torch autograd of ``F.silu(F.group_norm())``;
  24. one flagship train step (bf16, batch 16, 16448 samples, the plain
      network, the config's AMSGrad, seeded weights, batch and draws): the
@@ -141,7 +143,8 @@ Then the flagship's training path, new with the training slice:
      their plain versions (loss, gradients, parameters after the step), then
      the same in float32; 33 ``gn_silu`` and 33 backward calls a step; the
      median step time, peak memory and one profiled step (device busy, idle
-     share, the backward kernels' share);
+     share, the backward kernels' share, and the ``gn_silu_bwd*`` kernels
+     the device ran, which must be 33 x ``BWD_LAUNCHES_PER_CALL``);
  25. ``python -m sddm_tpu_torch.train`` (run in this process): the flagship
      config from init on the first 400 files of the v1 train split for 3
      epochs with validation (ancestral-12) at epoch 3 on [20]'s test split
@@ -269,9 +272,10 @@ OUTPUT_LIMITS = {"sisnr": 0.5, "stoi": 0.02, "pesq_wb_approx": 0.05}
 # bf16 dx within one ulp; REL is the worst reading times 2.6.
 BWD_REL = 5e-6
 BWD_RTOL = {"float32": 1e-5, "bfloat16": 2.0**-7}
-# the kernels of csrc/gn_silu_bwd.cu, as the profiler names them; two a call
+# the kernel of csrc/gn_silu_bwd.cu, as the profiler names it; one launch a
+# call (its last CTA sums dweight and dbias)
 BWD_KERNEL = "gn_silu_bwd"
-BWD_LAUNCHES_PER_CALL = 2
+BWD_LAUNCHES_PER_CALL = 1
 # one flagship train step (phase 24), the kernel path against the same step
 # with both GroupNorm directions on their plain versions, the same weights,
 # batch and draws: (loss relative difference, gradient relative L2 over all
@@ -425,7 +429,8 @@ def is_nchw_kernel(name: str) -> bool:
 
 
 def nchw_plan_text(p) -> str:
-    """One NCHW plan (ops/gn_silu.py::nchw_plan) as phases 2, 3 and 7 print it."""
+    """One NCHW plan (ops/gn_silu.py::nchw_plan or nchw_backward_plan) as
+    phases 2, 3, 7 and 23 print it."""
     return (f"q={p.q} CTAs={p.grid} threads={p.threads} packs={p.packs} runs/CTA={p.runs} "
             f"smem={p.smem} reread={p.reread}/{p.slice}")
 
@@ -1578,10 +1583,15 @@ def check_backward(shape, g: int, gen, constant: bool = False):
     float32 and bfloat16: the outputs' dtypes, shapes and finiteness, each
     call repeated bit for bit, and dx, dweight, dbias held against
     ``gn_silu_backward_reference`` at ``BWD_REL`` / ``BWD_RTOL``.  Returns
-    [(dtype name, ok, {output: max |d| / scale}, max |d| over the outputs)]."""
+    [(dtype name, ok, {output: max |d| / scale}, max |d| over the outputs, the
+    plan the call launched)]."""
     import torch
 
-    from sddm_tpu_torch.ops.gn_silu import gn_silu_backward, gn_silu_backward_reference
+    from sddm_tpu_torch.ops.gn_silu import (
+        backward_plan,
+        gn_silu_backward,
+        gn_silu_backward_reference,
+    )
 
     device, c = gen.device, shape[1]
     w = (1 + 0.5 * torch.randn(c, device=device, generator=gen)).contiguous()
@@ -1615,7 +1625,7 @@ def check_backward(shape, g: int, gen, constant: bool = False):
             ok &= bool(torch.all(d <= BWD_REL * scale + rtol * q.abs()))
             errs[name] = float(d.max()) / max(scale, 1e-30)
             max_abs = max(max_abs, float(d.max()))
-        readings.append((dtype_name, ok, errs, max_abs))
+        readings.append((dtype_name, ok, errs, max_abs, backward_plan(x, dy, g)))
     return readings
 
 
@@ -1648,7 +1658,7 @@ def backward_phase(sites, distinct, gen) -> dict:
     import torch.nn.functional as F
 
     from sddm_tpu_torch.ops.gn_silu import (
-        backward_threads,
+        backward_plan,
         gn_silu_backward,
         gn_silu_backward_reference,
     )
@@ -1661,17 +1671,17 @@ def backward_phase(sites, distinct, gen) -> dict:
               ((2, 16, 8, 8), 4, True),          # a constant group (cg 4)
               ((3, 12, 7, 5), 4, False),         # cg 3, H*W = 35 odd
               ((2, 4, 1024, 2560), 2, False)]    # a 5.2M-element run: over any CTA's shared memory
-    log(f"[23] gn_silu_backward (csrc/gn_silu_bwd.cu, {BWD_LAUNCHES_PER_CALL} kernels a call) vs "
+    log(f"[23] gn_silu_backward (csrc/gn_silu_bwd.cu, {BWD_LAUNCHES_PER_CALL} launch a call) vs "
         f"its plain backward at the {len(distinct)} distinct sites, batch {BATCH_ROWS}, and 4 edge "
         f"cases; |d| <= {BWD_REL} x scale + rtol x |want|, rtol {BWD_RTOL}")
     for shape, g, constant in cases:
-        for dtype_name, ok, errs, max_abs in check_backward(shape, g, gen, constant):
+        for dtype_name, ok, errs, max_abs, plan in check_backward(shape, g, gen, constant):
             worst[dtype_name] = max(worst[dtype_name], *errs.values())
             worst_abs[dtype_name] = max(worst_abs[dtype_name], max_abs)
             log(f"    {str(shape):22s} G={g:<3d} {dtype_name:8s} max|d|/scale dx {errs['dx']:.2e} "
                 f"dweight {errs['dweight']:.2e} dbias {errs['dbias']:.2e} "
-                f"{'ok' if ok else 'OVER'} ({backward_threads(shape[2] * shape[3])} threads)"
-                f"{' constant group' if constant else ''}")
+                f"{'ok' if ok else 'OVER'}{' constant group' if constant else ''}  "
+                f"{nchw_plan_text(plan)}")
             if not ok:
                 fail(f"gn_silu_backward disagrees with its plain backward at {shape} {dtype_name}")
     log("    every call repeated bit for bit")
@@ -1704,7 +1714,8 @@ def backward_phase(sites, distinct, gen) -> dict:
         log(f"    {list(shape)} {dtype_name} G={g}: kernel {kernel_ms:.4f} / {kernel_ms2:.4f} ms "
             f"(device {t_us * BWD_LAUNCHES_PER_CALL:.1f} us a call), plain {plain_ms:.4f} ms, "
             f"autograd of F.silu(F.group_norm) {two_call_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}: {n_bytes} B at 3.35 TB/s); {n_bytes / kernel_ms / 1e6:.0f} GB/s")
+            f"({bound_by}: {n_bytes} B at 3.35 TB/s); {n_bytes / kernel_ms / 1e6:.0f} GB/s; "
+            f"{nchw_plan_text(backward_plan(x, dy, g))}")
         del y, xr
     site_us, bound_sum = {}, 0.0
     for (cs, hs, ws), gs in distinct:
@@ -1716,6 +1727,10 @@ def backward_phase(sites, distinct, gen) -> dict:
         if not seen:
             fail(f"the profiler saw no backward kernel at {(cs, hs, ws)}")
         site_us[(cs, hs, ws, gs)] = t_us * BWD_LAUNCHES_PER_CALL
+        bound_us, call_us = gn_bwd_bound(xs)[0] * 1e3, t_us * BWD_LAUNCHES_PER_CALL
+        log(f"    site [{BATCH_ROWS},{cs},{hs},{ws}] G={gs} bf16: device {call_us:7.1f} us a call, "
+            f"bound {bound_us:6.2f} us ({bound_us / call_us:.2f} of it), "
+            f"{sites.count(((cs, hs, ws), gs))} a step; {nchw_plan_text(backward_plan(xs, dys, gs))}")
     per_forward_ms = sum(site_us[chw + (gs,)] for chw, gs in sites) / 1e3
     bound_sum = sum(gn_bwd_bound(torch.empty((BATCH_ROWS,) + chw, dtype=torch.bfloat16,
                                              device="meta"))[0] for chw, _ in sites)
@@ -1727,6 +1742,11 @@ def backward_phase(sites, distinct, gen) -> dict:
     big = timing["bfloat16"]
     return {"name": "gn_silu_backward", "route": "cuda",
             "source": "sddm_tpu_torch/csrc/gn_silu_bwd.cu",
+            "design": "redesigned for Hopper: each slice of a run's x and dy staged once in shared "
+                      "memory, runs over 32 KB of x split across thread-block clusters whose "
+                      "partials meet over DSMEM in rank order, 16-byte loads and stores, one "
+                      "launch in which the last run of each group (an integer ticket) sums its "
+                      "dweight/dbias; plan ops/gn_silu.py::nchw_backward_plan",
             "replaces": "sddm_tpu/experimental/pallas_groupnorm_swish.py:98",
             "replaces_note": "no Pallas counterpart: JAX differentiates flax GroupNorm -> swish "
                              "through XLA; the backward of the kernel of that line",
@@ -1735,7 +1755,7 @@ def backward_phase(sites, distinct, gen) -> dict:
             "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
             "bound_by": big["bound_by"], "library_ms": None, "two_call_ms": big["two_call_ms"],
             "device_us": big["device_us"], "f32": timing["float32"],
-            "shape": list(shape), "dtype": "bfloat16", "kernels_per_call": BWD_LAUNCHES_PER_CALL,
+            "shape": list(shape), "dtype": "bfloat16",
             "sites_per_step_device_ms": per_forward_ms, "bound_sites_per_step_ms": bound_sum}
 
 
@@ -1856,8 +1876,7 @@ def train_step_phase(config, net_args, device) -> dict:
             f"{grad_rel:.2e} (tol {tol[1]}), worst parameter {worst_name} {worst_rel:.2e} (tol "
             f"{tol[2]}); parameters after the step: max|d| {dmax:.2e} (<= 2 lr), share apart by "
             f"> lr/2 {apart:.2e} (tol {tol[3]}) {'ok' if ok else 'OVER'}; launches "
-            f"{launches[0]} gn_silu_nchw + {launches[1]} backward calls "
-            f"({launches[1] * BWD_LAUNCHES_PER_CALL} backward kernels)")
+            f"{launches[0]} gn_silu_nchw + {launches[1]} backward calls")
         log(f"    the kernel path run twice: loss {float(loss_r):.6f}, gradients rel L2 "
             f"{floor[0]:.2e}, worst parameter {floor[1][0]:.2e}, share apart {floor[2]:.2e}")
         if not ok:
@@ -1867,8 +1886,6 @@ def train_step_phase(config, net_args, device) -> dict:
     del nets[1]
 
     ((net, _, step),) = fresh(torch.bfloat16)
-    record["launches"] = {"gn_silu_nchw": SITES_PER_FORWARD, "gn_silu_backward": SITES_PER_FORWARD,
-                          "backward_kernels": SITES_PER_FORWARD * BWD_LAUNCHES_PER_CALL}
     for _ in range(3):
         step(target, condition, gen)
     torch.cuda.synchronize()
@@ -1881,14 +1898,31 @@ def train_step_phase(config, net_args, device) -> dict:
         times.append(time.perf_counter() - start)
     step_ms = float(np.median(times)) * 1e3
     peak = torch.cuda.max_memory_allocated()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        step(target, condition, gen)
-        torch.cuda.synchronize()
-        prof_ms = (time.perf_counter() - start) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-              and not is_annotation(e)]
-    busy = {e.key: (e.self_device_time_total / 1e3, e.count) for e in events}
+    # one profiled step: the backward kernels the device ran in it, counted by
+    # the profiler, against the calls the wrapper counted; a window in which
+    # the profiler saw no backward kernel is profiled again, up to 3 times
+    for _ in range(3):
+        gn_silu_backward.launches = 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            step(target, condition, gen)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - start) * 1e3
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and not is_annotation(e)]
+        busy = {e.key: (e.self_device_time_total / 1e3, e.count) for e in events}
+        bwd_kernels = sum(v[1] for k, v in busy.items() if BWD_KERNEL in k)
+        if bwd_kernels:
+            break
+    bwd_calls = gn_silu_backward.launches
+    record["launches"] = {"gn_silu_nchw": SITES_PER_FORWARD, "gn_silu_backward": bwd_calls,
+                          "backward_kernels": bwd_kernels}
+    log(f"    profiled step: {bwd_kernels} {BWD_KERNEL}* kernels run on the device for "
+        f"{bwd_calls} gn_silu_backward calls ({bwd_kernels / max(bwd_calls, 1):g} a call)")
+    if bwd_calls != SITES_PER_FORWARD or \
+            bwd_kernels != SITES_PER_FORWARD * BWD_LAUNCHES_PER_CALL:
+        fail(f"the profiled step ran {bwd_kernels} backward kernels for {bwd_calls} calls, "
+             f"expected {SITES_PER_FORWARD * BWD_LAUNCHES_PER_CALL} for {SITES_PER_FORWARD}")
     busy_ms = sum(v[0] for v in busy.values())
     bwd_ms = sum(v[0] for k, v in busy.items() if BWD_KERNEL in k)
     fwd_ms = sum(v[0] for k, v in busy.items() if is_nchw_kernel(k))
@@ -2327,6 +2361,9 @@ def main() -> int:
     bwd_record = backward_phase(sites, distinct, gen)
     train_step = train_step_phase(config, net_args, device)
     bwd_record["launches"] = train_step["launches"]["gn_silu_backward"]
+    # kernels the device ran per call in the profiled step (profiler count / wrapper count)
+    bwd_record["kernels_per_call"] = (train_step["launches"]["backward_kernels"]
+                                      / train_step["launches"]["gn_silu_backward"])
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         f2s = file_to_score_phases(work, smi, device)

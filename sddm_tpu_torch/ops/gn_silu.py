@@ -47,8 +47,8 @@ _LIB = CudaLibrary(SOURCE, {
     "gn_silu_nchw_max_clusters": [ctypes.c_int] * 5 + [ctypes.c_void_p],
 })
 BACKWARD_SOURCE = CSRC / "gn_silu_bwd.cu"
-_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
-                                                          ctypes.c_void_p]
+_BWD_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float]
+             + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 _BWD_LIB = CudaLibrary(BACKWARD_SOURCE, {"gn_silu_bwd_f32": _BWD_ARGS,
                                          "gn_silu_bwd_bf16": _BWD_ARGS})
 _MAX_CHANNELS, _MAX_GROUPS = 4096, 1024  # the NHWC statistics' shared memory
@@ -69,6 +69,14 @@ _THREADS_C, _CLUSTER_C, _SMEM_MAX_C = 512, 8, 231424
 # of the plans timed at the flagship's sites on an H100); small runs share a
 # CTA up to _CTA_THREADS.
 _SLICE_UNITS, _MIN_SLICE_UNITS, _CTA_THREADS = 4096, 256, 256
+# The NCHW backward's constants (csrc/gn_silu_bwd.cu: kThreadsB, kClusterB,
+# kSmemMaxB, kChunkB): at most 512 threads a CTA and 8 CTAs a cluster; the
+# shared memory a CTA keeps its slice of x and dy in, at most; the channels
+# whose sums a CTA meets at once.  A slice holds x and dy, so a run of more
+# than _BWD_SLICE_UNITS (32 KB of x) goes to a cluster (the fastest of 1024,
+# 2048 and 4096 timed at the flagship's sites on an H100).
+_THREADS_B, _CLUSTER_B, _SMEM_MAX_B, _CHUNK_B = 512, 8, 229376, 16
+_BWD_SLICE_UNITS = 2048
 
 
 def build() -> dict:
@@ -257,19 +265,80 @@ def gn_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 gn_silu.launches = 0
 
 
-def backward_threads(hw: int) -> int:
-    """Threads of the backward's CTA for runs of ``hw`` positions a
-    channel: a thread for every position, in whole warps, up to 512."""
-    return min(512, -(-hw // 32) * 32)
+@functools.lru_cache(maxsize=512)
+def nchw_backward_plan(b: int, c: int, hw: int, g: int, elem: int, vec: bool,
+                       sms: int) -> NchwPlan:
+    """The plan of one NCHW backward call of ``b`` rows, ``c`` channels,
+    ``hw`` positions and ``g`` groups, elements of ``elem`` bytes, on a card
+    of ``sms`` SMs.  ``vec``: the kernel moves 16-byte packs (else one
+    element a load).  As :func:`nchw_plan`, with x and dy both staged: a run
+    of more than ``_BWD_SLICE_UNITS`` goes to a cluster of q CTAs, the
+    fewest that bring a slice to it (at most 8); fewer runs than SMs spread
+    over more CTAs, none under ``_MIN_SLICE_UNITS``; a thread takes 2, 4 or
+    8 units of a slice; small runs share a CTA up to ``_CTA_THREADS``
+    threads while the card keeps a CTA on each SM.  A CTA keeps ``cap``
+    units of each slice of x, and as many of dy, in shared memory
+    (``smem``: x's slots, then dy's) up to ``_SMEM_MAX_B`` bytes; the
+    ``reread`` units after them are read again in each of the kernel's three
+    passes."""
+    pack = 16 // elem if vec else 1
+    unit = pack * elem
+    units = c // g * hw // pack
+    runs = b * g
+    q = 1
+    while q < _CLUSTER_B and -(-units // q) > _BWD_SLICE_UNITS:
+        q *= 2
+    while q < _CLUSTER_B and runs * q < sms and -(-units // (2 * q)) >= _MIN_SLICE_UNITS:
+        q *= 2
+    sl = -(-units // q)
+    per_thread = 2 if sl <= 256 else 4 if sl <= 1024 else 8
+    tpr = min(_THREADS_B, -(-sl // (32 * per_thread)) * 32)
+    rpc = 1
+    if q == 1:
+        while 2 * rpc * tpr <= _CTA_THREADS and -(-runs // (2 * rpc)) >= sms:
+            rpc *= 2
+    cap = min(sl, _SMEM_MAX_B // (2 * rpc * unit))
+    return NchwPlan(q, tpr * rpc, rpc, -(-runs // rpc) * q, 2 * rpc * cap * unit, sl, cap,
+                    -(-cap // tpr), sl - cap)
+
+
+def backward_plan(x: torch.Tensor, dy: torch.Tensor, num_groups: int) -> NchwPlan:
+    """The plan :func:`gn_silu_backward` launches for CUDA ``x`` and ``dy``
+    (its dx, fresh from the caching allocator, is 16-byte aligned; the
+    launcher checks all three pointers against the plan)."""
+    b, c, h, w = x.shape
+    elem = x.element_size()
+    vec = (h * w) % (16 // elem) == 0 and x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+    return nchw_backward_plan(b, c, h * w, num_groups, elem, vec, _sm_count(x.device))
+
+
+_TICKETS = {}
+
+
+def _tickets(device: torch.device, stream: int, groups: int) -> torch.Tensor:
+    """The backward kernel's tickets for ``stream`` on ``device``: at least
+    ``groups`` int32, zero between calls (the run that sums a group sets its
+    ticket back).  Calls on one stream run in order, so they share them.
+    Under CUDA graph capture a call gets tickets of its own, none kept: the
+    graph holds their zero fill before the kernel, so every replay starts
+    from zero whatever ran on the stream before it."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(groups, dtype=torch.int32, device=device)
+    key = (device.index if device.index is not None else torch.cuda.current_device(), stream)
+    held = _TICKETS.get(key)
+    if held is None or held.numel() < groups:
+        held = _TICKETS[key] = torch.zeros(groups, dtype=torch.int32, device=device)
+    return held
 
 
 def gn_silu_backward(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor, num_groups: int, eps: float = 1e-5):
     """The gradient of :func:`gn_silu` for NCHW ``x`` (f32 or bf16) and ``dy``
     of ``x``'s type and shape: ``(dx, dweight, dbias)``, dx in ``x.dtype``,
-    the others f32.  CUDA tensors run the kernel of ``csrc/gn_silu_bwd.cu``:
-    one call launches two kernels (the runs, then the sum over the batch);
-    ``gn_silu_backward.launches`` counts the calls."""
+    the others f32.  CUDA tensors run the kernel of ``csrc/gn_silu_bwd.cu``,
+    planned by :func:`nchw_backward_plan`, one launch a call (the last run
+    of each group sums its dweight and dbias); ``gn_silu_backward.launches``
+    counts its launches."""
     if x.device.type == "cpu":
         return gn_silu_backward_reference(x, dy, weight, bias, num_groups, eps)
     if x.device.type != "cuda":
@@ -282,18 +351,20 @@ def gn_silu_backward(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
     b, c, h, w = x.shape
     lib = _BWD_LIB.get()
     fn = lib.gn_silu_bwd_bf16 if x.dtype == torch.bfloat16 else lib.gn_silu_bwd_f32
+    plan = backward_plan(x, dy, num_groups)
     dx = torch.empty_like(x)
-    part = torch.empty(2 * b * c, dtype=torch.float32, device=x.device)
+    part = torch.empty(2 * b * c * plan.q, dtype=torch.float32, device=x.device)
     dweight = torch.empty(c, dtype=torch.float32, device=x.device)
     dbias = torch.empty(c, dtype=torch.float32, device=x.device)
-    threads = backward_threads(h * w)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), dy.data_ptr(), weight.data_ptr(), bias.data_ptr(), dx.data_ptr(),
-                part.data_ptr(), dweight.data_ptr(), dbias.data_ptr(), b, c, h * w, num_groups,
-                eps, threads, torch.cuda.current_stream(x.device).cuda_stream)
+                part.data_ptr(), dweight.data_ptr(), dbias.data_ptr(),
+                _tickets(x.device, stream, num_groups).data_ptr(), b, c, h * w, num_groups,
+                eps, plan.q, plan.threads, plan.runs, plan.cap, plan.grid, plan.smem, stream)
     if rc != 0:
         raise RuntimeError(f"gn_silu_backward kernel launch failed: CUDA error {rc} "
-                           f"({threads} threads, shape {tuple(x.shape)}, G={num_groups})")
+                           f"(plan {plan}, shape {tuple(x.shape)}, G={num_groups})")
     gn_silu_backward.launches += 1
     return dx, dweight, dbias
 
