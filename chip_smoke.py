@@ -189,7 +189,7 @@ Then packed (space-to-depth) training, new with its slice (``SDDM_PACKED_TRAIN=1
 ``PackedTrainUNetModified2``, whose GroupNorm sites run ``gn_silu_nhwc`` forward
 and ``gn_silu_nhwc_backward`` backward):
  30. hold the NHWC GroupNorm+SiLU(+mask) backward (``csrc/gn_silu_nhwc_bwd.cu``,
-     two kernels a call) against its plain backward, with the statistics the
+     one cooperative launch a call) against its plain backward, with the statistics the
      forward kernel wrote, at all 33 sites of the packed engine, batch 16,
      float32 and bfloat16, plus B = 1, B = 200 (identity and offset sites),
      a near-constant group, two odd shapes, the identity site and the largest
@@ -198,14 +198,15 @@ and ``gn_silu_nhwc_backward`` backward):
      events and the profiler's device time) beside the bound, the plain
      version and torch autograd of ``gn_silu_nhwc_reference``, at the identity
      site beside torch autograd of ``F.silu(F.group_norm())`` on the
-     channels-last view, and each site's device time summed over a step's 33;
+     channels-last view, and each site's device time (and CUDA events time,
+     with its plan's waves) summed over a step's 33;
  31. one packed train step (bf16, batch 16, 16448 samples, [24]'s seeded
      weights, batch and draws, the config's AMSGrad): the kernel path against
      the same step with both NHWC directions on their plain versions (loss,
      gradients, parameters after the step), in bf16 and float32; in float32
      (TF32 off) the twin against the plain network's step; 33
      ``gn_silu_nhwc`` and 33 backward calls a step, no NCHW launch, and the
-     profiler's count of the kernels (33 and 66); the median step, peak
+     profiler's count of the kernels (33 and 33); the median step, peak
      memory and one profiled step (device busy, idle share) beside [24]'s;
  32. ``SDDM_PACKED_TRAIN=1 python -m sddm_tpu_torch.train`` (in this process),
      resumed from the committed epoch-250 checkpoint on [25]'s 400 files for
@@ -365,13 +366,13 @@ TRAIN_FILES = 400
 RESUME_LOSS = (0.0300, 0.0655)
 RESUME_EPOCHS = 2
 
-# the NHWC backward (phases 30-32): the two kernels of csrc/gn_silu_nhwc_bwd.cu a
-# call (nhwc_bwd_sums, nhwc_bwd_dx), as the profiler names them.  [30] holds it
+# the NHWC backward (phases 30-32): the kernel of csrc/gn_silu_nhwc_bwd.cu, one
+# launch a call (nhwc_bwd_fused), as the profiler names it.  [30] holds it
 # against its plain backward at [23]'s limits (BWD_REL of each output's scale,
 # one bf16 ulp for a bf16 dx), stated before the first run; the statistics the
 # forward kernel writes for it at the same limits.
 NHWC_BWD_KERNEL = "nhwc_bwd_"
-NHWC_BWD_LAUNCHES_PER_CALL = 2
+NHWC_BWD_LAUNCHES_PER_CALL = 1
 # [31]: one packed train step, the kernel path against both NHWC directions on
 # their plain versions, at [24]'s TRAIN_TOL; and in float32 (TF32 off) the twin
 # against the plain network's step from the same weights, batch and draws:
@@ -454,30 +455,36 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_time_us(fn, match, calls: int = 5, tries: int = 3):
+UNSEEN_WINDOWS = []  # the device events of each window that saw no launch it looked for
+
+
+def device_time_us(fn, match, calls: int = 5):
     """The profiler's device time of one launch of the kernels whose names
     ``match`` accepts, over ``calls`` calls of ``fn`` after three warm-up
     calls: (us a launch, launches seen).  A window in which the profiler saw
-    none of the launches is profiled again, up to ``tries`` times in all."""
+    none of the launches is profiled again, with the margins of
+    ``utils/profiling.RETRY_WINDOWS`` in turn."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
-    from sddm_tpu_torch.utils.profiling import profiled
+    from sddm_tpu_torch.utils.profiling import RETRY_WINDOWS, profiled
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
-        with profiled(ProfilerActivity.CUDA) as prof:
+    for margin, with_cpu in RETRY_WINDOWS:
+        activities = (ProfilerActivity.CPU,) * with_cpu + (ProfilerActivity.CUDA,)
+        with profiled(*activities, margin_s=margin) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and match(e.key)]
+        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        events = [e for e in device if match(e.key)]
         seen = sum(e.count for e in events)  # the profiler may miss a launch at its start
         if seen:
             return sum(e.self_device_time_total for e in events) / seen, seen
+        UNSEEN_WINDOWS.append(sorted((e.key[:60], e.count) for e in device))
     return 0.0, 0
 
 
@@ -2651,8 +2658,8 @@ def check_nhwc_backward(shape, groups: int, group_of, count: int, offset: bool, 
 
 def nhwc_bwd_plan_text(p) -> str:
     """One NHWC backward plan (ops/gn_silu.py::nhwc_backward_plan) as [30] prints it."""
-    return (f"K={p.k} rows={p.rows} blocks {p.items} + {p.grid - p.items} "
-            f"smem={p.smem}")
+    return (f"K={p.k} rows={p.rows} staged={p.staged} buffers={p.buffers} items={p.items} "
+            f"grid={p.grid} waves={p.waves} smem={p.smem}")
 
 
 def nhwc_backward_phase(config, net_args, device, gen) -> dict:
@@ -2700,12 +2707,14 @@ def nhwc_backward_phase(config, net_args, device, gen) -> dict:
             ((3, 11, 7, 36), 3, (9,), True, "odd: C4 % 8, H*W = 77"),
             ((3, 5, 7, 30), 5, None, False, "odd: C4 % 4, identity"),
             ((BATCH_ROWS, 8, 4, 160), 32, None, False, "the identity site"),
-            ((BATCH_ROWS, 129, 65, 128), 32, (32,), True, "largest offset site")):
+            ((BATCH_ROWS, 129, 65, 128), 32, (32,), True, "largest offset site"),
+            ((1, 512, 128, 256), 32, (64,), False, "reread: K = the grid"),
+            ((2, 4, 4, 4096), 1024, None, False, "C4 4096, G 1024")):
         group_of, count = plan(shape[-1], groups, sections)
         cases.append((shape, groups, group_of.to(torch.int32).to(device), count, offset,
                       1e-3 if label == "near-constant" else 1.0, label))
     log(f"[30] gn_silu_nhwc_backward (csrc/gn_silu_nhwc_bwd.cu, {NHWC_BWD_LAUNCHES_PER_CALL} "
-        f"kernels a call) vs its plain backward at the {len(sites)} sites of the packed engine, "
+        f"kernel a call) vs its plain backward at the {len(sites)} sites of the packed engine, "
         f"batch {BATCH_ROWS}, and {len(cases) - len(sites)} edge cases, with the statistics the "
         f"forward kernel wrote; |d| <= {BWD_REL} x scale + rtol x |want|, rtol {BWD_RTOL}")
     worst = {"float32": 0.0, "bfloat16": 0.0}
@@ -2794,24 +2803,37 @@ def nhwc_backward_phase(config, net_args, device, gen) -> dict:
                                                           stats=stats), 20)
     library_autograd_ms = cuda_time_ms(
         lambda: torch.autograd.grad(y_l, (x_cl, w_l, b_l), dy_cl, retain_graph=True), 20)
-    log(f"    the identity site {[BATCH_ROWS] + list(ihwc)} bf16: kernel {ident_ms:.4f} ms, "
+    ident_us, _ = device_time_us(lambda: gn_silu_nhwc_backward(x, dy, *args, order=order,
+                                                               stats=stats), is_bwd)
+    log(f"    the identity site {[BATCH_ROWS] + list(ihwc)} bf16: kernel {ident_ms:.4f} ms by "
+        f"events (the wrapper's host work and the launch), "
+        f"{ident_us * NHWC_BWD_LAUNCHES_PER_CALL:.1f} us of device time, "
         f"torch autograd of F.silu(F.group_norm()) on the channels-last view "
         f"{library_autograd_ms:.4f} ms, bound {nhwc_bwd_bound(x, im.groups)[0]:.4f} ms")
     del y_l
-    site_us = []
+    site_us, per_site = [], []
     for mm, h in sites:
         x, dy, args, order, stats = inputs((BATCH_ROWS,) + h, torch.bfloat16, mm.group_of,
                                            mm.groups, mm.count, mm.offset)
-        t_us, seen = device_time_us(
-            lambda: gn_silu_nhwc_backward(x, dy, *args, order=order, stats=stats), is_bwd)
+
+        def call():
+            return gn_silu_nhwc_backward(x, dy, *args, order=order, stats=stats)
+
+        t_us, seen = device_time_us(call, is_bwd)
         if not seen:
-            fail(f"the profiler saw no NHWC backward kernel at {h}")
+            fail(f"the profiler saw no NHWC backward kernel at {h}; its windows' device events: "
+                 f"{UNSEEN_WINDOWS[-3:]}")
         call_us = t_us * NHWC_BWD_LAUNCHES_PER_CALL
+        events_us = cuda_time_ms(call, 20) * 1e3
         b_us = nhwc_bwd_bound(x, mm.groups)[0] * 1e3
+        p = nhwc_backward_plan_of(x, mm.groups)
         site_us.append((call_us, b_us))
+        per_site.append({"site": [BATCH_ROWS] + list(h), "offset": bool(mm.offset),
+                         "device_us": call_us, "events_us": events_us, "bound_us": b_us,
+                         "waves": p.waves})
         log(f"       {str(list(h)):16s} {'offset' if mm.offset else 'plain ':6s} device "
-            f"{call_us:7.1f} us a call, bound {b_us:6.2f} us ({b_us / call_us:.2f} of it); "
-            f"{nhwc_bwd_plan_text(nhwc_backward_plan_of(x, mm.groups))}")
+            f"{call_us:7.1f} us a call, events {events_us:7.1f} us, bound {b_us:6.2f} us "
+            f"({b_us / call_us:.2f} of it); {nhwc_bwd_plan_text(p)}")
     per_step_ms = sum(t for t, _ in site_us) / 1e3
     bound_sum = sum(b for _, b in site_us) / 1e3
     log(f"    the {len(sites)} sites of one batch-{BATCH_ROWS} packed step, bf16, device time of "
@@ -2823,11 +2845,16 @@ def nhwc_backward_phase(config, net_args, device, gen) -> dict:
     bf = timing["bfloat16"]
     return {"name": "gn_silu_nhwc_backward", "route": "cuda",
             "source": "sddm_tpu_torch/csrc/gn_silu_nhwc_bwd.cu",
-            "design": "two plain launches a call: per (row, range) item the sums of dz and dz "
-                      "xhat per channel (nhwc_bwd_sums), then each item's dx from its row's "
-                      "ranges summed in rank order plus blocks that sum dscale/dbias "
-                      "(nhwc_bwd_dx); the forward kernel writes the [B, G, 2] statistics; no "
-                      "atomics; plan ops/gn_silu.py::nhwc_backward_plan",
+            "design": "redesigned for Hopper: one cooperative launch of one 512-thread block "
+                      "an SM; each (row, range) item's x, dy and row statistics copied once into "
+                      "shared memory by TMA bulk copies, two items a block where they fit, the "
+                      "next copied in four chunks as dx is written from its slot; per item the "
+                      "sums of dz and dz xhat and a release add on the row's integer ticket, "
+                      "then, once the row's K items have taken theirs, the row's group sums in "
+                      "rank order and dx from shared memory (float32 keeps dz in dy's place); "
+                      "the rows' channel sums and dscale/dbias after grid barriers; the forward "
+                      "kernel writes the [B, G, 2] statistics; no float atomics; plan "
+                      "ops/gn_silu.py::nhwc_backward_plan",
             "replaces": "sddm_tpu/experimental/pallas_gn_silu.py:142",
             "replaces_note": "no Pallas counterpart: JAX differentiates the packed engine's jnp "
                              "_GN -> silu -> mask through XLA; the backward of the kernel of "
@@ -2839,7 +2866,9 @@ def nhwc_backward_phase(config, net_args, device, gen) -> dict:
             "device_us": bf["device_us"], "f32": timing["float32"], "shape": list(shape),
             "dtype": "bfloat16",
             "identity_site": {"shape": [BATCH_ROWS] + list(ihwc), "ms": ident_ms,
+                              "device_us": ident_us * NHWC_BWD_LAUNCHES_PER_CALL,
                               "library_autograd_ms": library_autograd_ms},
+            "sites": per_site,
             "sites_per_step_device_ms": per_step_ms, "bound_sites_per_step_ms": bound_sum}
 
 
@@ -3166,6 +3195,8 @@ def main() -> int:
         gn_silu_reference,
         nchw_max_clusters,
         nchw_plan,
+        nhwc_backward_blocks_per_sm,
+        nhwc_backward_plan,
         nhwc_plan,
     )
 
@@ -3197,6 +3228,11 @@ def main() -> int:
     log(f"    {NHWC_KERNEL} at the largest packed site [{BATCH_ROWS}, 128, 64, 256] bf16 on "
         f"{sms} SMs: {big.grid} blocks of 512 threads, {big.smem} bytes of dynamic shared "
         f"memory each, {big.staged} of {big.rows} positions a block staged")
+    bwd_per_sm = {e: nhwc_backward_blocks_per_sm(device, e, True) for e in (2, 4)}
+    big_b = nhwc_backward_plan(BATCH_ROWS, 128, 64, 256, 32, 2, True, sms, bwd_per_sm[2])
+    log(f"    nhwc_bwd_fused: cudaOccupancyMaxActiveBlocksPerMultiprocessor at its largest "
+        f"shared memory {bwd_per_sm[2]} (bf16), {bwd_per_sm[4]} (f32); at the largest packed "
+        f"site bf16 {nhwc_bwd_plan_text(big_b)}")
     big_c = nchw_plan(BATCH_ROWS, 64, 256 * 128, 32, 2, True, sms)
     held = nchw_max_clusters(big_c, 2, True) if big_c.q > 1 else "n/a (no cluster)"
     log(f"    gn_silu_nchw at the largest plain site [{BATCH_ROWS}, 64, 256, 128] bf16: "

@@ -94,17 +94,31 @@ class AudioDataset:
             noisy = np.pad(noisy, ((0, 0), (0, pad)))
         return clean, noisy
 
-    def __getitem__(self, index):
+    def load(self, index):
+        """Item ``index`` decoded, nothing drawn: ``self[index]`` is
+        ``self.crop(self.load(index))``.  The loaders decode in worker
+        threads and crop in batch order, so the draws do not depend on the
+        threads' timing."""
         if self.cache == "ram":
-            clean, noisy = self._crop_or_pad(*self._cached_pair_i16(index))
-            return np.ascontiguousarray(clean), np.ascontiguousarray(noisy), index
-
+            return self._cached_pair_i16(index) + (index,)
         clean, noisy = self._load_pair(index)
+        if self.datatype in (".wav", ".logwav.npy") and clean.shape[-1] != noisy.shape[-1]:
+            raise ValueError("clean/noisy length mismatch")
+        return clean, noisy, index
+
+    def crop(self, loaded):
+        """The random crop (or zero pad) of a :meth:`load` result: the
+        dataset's only draw."""
+        clean, noisy, index = loaded
+        if self.cache == "ram":
+            clean, noisy = self._crop_or_pad(clean, noisy)
+            return np.ascontiguousarray(clean), np.ascontiguousarray(noisy), index
         if self.datatype in (".wav", ".logwav.npy"):
-            if clean.shape[-1] != noisy.shape[-1]:
-                raise ValueError("clean/noisy length mismatch")
             clean, noisy = self._crop_or_pad(clean, noisy)
         return clean, noisy, index
+
+    def __getitem__(self, index):
+        return self.crop(self.load(index))
 
     def get_name(self, idx) -> str:
         if self.datatype == ".wav":
@@ -114,7 +128,14 @@ class AudioDataset:
 
 class InferDataset(AudioDataset):
     """Each utterance zero-padded to a multiple of T and stacked as rows
-    ``[n_chunk, 1, T]``, with the file index of every row."""
+    ``[n_chunk, 1, T]``, with the file index of every row.  Nothing is
+    drawn: :meth:`load` is the whole item."""
+
+    def load(self, index):
+        return self[index]
+
+    def crop(self, loaded):
+        return loaded
 
     def __getitem__(self, index):
         if self.datatype not in (".wav", ".logwav.npy"):

@@ -5,7 +5,11 @@ in both: the train/validation split shuffles with ``RandomState(0)`` and
 every epoch permutes with ``default_rng((seed, epoch))``.  That is why this
 is not ``torch.utils.data.DataLoader``, whose order differs.  With
 ``num_workers > 1`` a thread pool decodes up to two batches ahead of the
-consumer; batches are contiguous numpy arrays.
+consumer; batches are contiguous numpy arrays.  The random crops (the
+dataset's ``crop``, the WaveGrad collate) are drawn in the consuming thread,
+batch by batch in order, so every worker count gives the batches of one
+worker, which are the JAX package's at ``num_workers`` 0.  (The JAX package's
+threads draw from the same generators in their own order.)
 """
 
 from __future__ import annotations
@@ -93,23 +97,29 @@ class BaseDataLoader:
         n_batches = len(self)
         batches = [order[i * self.batch_size : (i + 1) * self.batch_size]
                    for i in range(n_batches)]
+        # decoding draws nothing; the crops and the collate draw here, in order
+        load = getattr(self.dataset, "load", self.dataset.__getitem__)
+        crop = getattr(self.dataset, "crop", None)
 
-        def fetch(batch_idx):
-            return self.collate_fn([self.dataset[i] for i in batch_idx])
+        def decode(batch_idx):
+            return [load(i) for i in batch_idx]
+
+        def finish(decoded):
+            return self.collate_fn([crop(it) for it in decoded] if crop else decoded)
 
         if self.num_workers <= 1:
             for b in batches:
-                yield fetch(b)
+                yield finish(decode(b))
             return
         # each worker decodes a whole batch; up to two batches in flight
         ahead = 2
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
-            futures = [pool.submit(fetch, b) for b in batches[:ahead]]
+            futures = [pool.submit(decode, b) for b in batches[:ahead]]
             for consumed in range(n_batches):
-                result = futures[consumed].result()
+                decoded = futures[consumed].result()
                 if consumed + ahead < n_batches:
-                    futures.append(pool.submit(fetch, batches[consumed + ahead]))
-                yield result
+                    futures.append(pool.submit(decode, batches[consumed + ahead]))
+                yield finish(decoded)
 
     def split_validation(self) -> Optional["BaseDataLoader"]:
         """A loader over the held-out subset, or None without one."""

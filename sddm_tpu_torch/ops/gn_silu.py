@@ -55,10 +55,12 @@ _BWD_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float]
 _BWD_LIB = CudaLibrary(BACKWARD_SOURCE, {"gn_silu_bwd_f32": _BWD_ARGS,
                                          "gn_silu_bwd_bf16": _BWD_ARGS})
 NHWC_BACKWARD_SOURCE = CSRC / "gn_silu_nhwc_bwd.cu"
-_NHWC_BWD_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+_NHWC_BWD_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-_NHWC_BWD_LIB = CudaLibrary(NHWC_BACKWARD_SOURCE, {"gn_silu_nhwc_bwd_f32": _NHWC_BWD_ARGS,
-                                                   "gn_silu_nhwc_bwd_bf16": _NHWC_BWD_ARGS})
+_NHWC_BWD_LIB = CudaLibrary(NHWC_BACKWARD_SOURCE, {
+    "gn_silu_nhwc_bwd_f32": _NHWC_BWD_ARGS, "gn_silu_nhwc_bwd_bf16": _NHWC_BWD_ARGS,
+    "gn_silu_nhwc_bwd_blocks_per_sm": [ctypes.c_int] * 3 + [ctypes.c_void_p],
+})
 _MAX_CHANNELS, _MAX_GROUPS = 4096, 1024  # the NHWC statistics' shared memory
 # The NHWC kernel's constants (csrc/gn_silu.cu: kThreadsN, kSmemMaxN): one block
 # of 512 threads per SM, 227 KB of shared memory a block.
@@ -85,14 +87,10 @@ _SLICE_UNITS, _MIN_SLICE_UNITS, _CTA_THREADS = 4096, 256, 256
 # 2048 and 4096 timed at the flagship's sites on an H100).
 _THREADS_B, _CLUSTER_B, _SMEM_MAX_B, _CHUNK_B = 512, 8, 229376, 16
 _BWD_SLICE_UNITS = 2048
-# The NHWC backward's constants (csrc/gn_silu_nhwc_bwd.cu: kThreadsB,
-# kMaxRangesB, kParamWarpsB, kSmemMaxB): 512 threads a block; a batch row cut
-# into at most 32 ranges (each block of the dx kernel sums its row's ranges);
-# 16 channels a parameter block; the dx kernel's shared memory, at most.  A
-# row is cut into ranges until the card has about _BWD_ITEMS_PER_SM blocks an
-# SM, none under _MIN_RANGE_BYTES of x.
-_THREADS_BN, _MAX_RANGES_BN, _PARAM_WARPS_BN, _SMEM_MAX_BN = 512, 32, 16, 100352
-_BWD_ITEMS_PER_SM = 2
+# The NHWC backward's constants (csrc/gn_silu_nhwc_bwd.cu: kThreadsB, kSmemMaxB,
+# kPackBytesB): 512 threads a block, one block an SM with 227 KB of shared
+# memory, 8 bytes of x (and of dy) a thread at a position.
+_THREADS_BN, _SMEM_MAX_BN, _PACK_BYTES_BN = 512, 232448, 8
 
 
 def build() -> dict:
@@ -337,9 +335,10 @@ _TICKETS = {}
 
 
 def _tickets(device: torch.device, stream: int, groups: int) -> torch.Tensor:
-    """The backward kernel's tickets for ``stream`` on ``device``: at least
-    ``groups`` int32, zero between calls (the run that sums a group sets its
-    ticket back).  Calls on one stream run in order, so they share them.
+    """The backward kernels' tickets for ``stream`` on ``device``: at least
+    ``groups`` int32, zero between calls (the NCHW kernel's run that sums a
+    group sets its ticket back, the NHWC kernel's block 0 every row's).
+    Calls on one stream run in order, so they share them.
     Under CUDA graph capture a call gets tickets of its own, none kept: the
     graph holds their zero fill before the kernel, so every replay starts
     from zero whatever ran on the stream before it."""
@@ -657,51 +656,125 @@ def _check_stats(stats: torch.Tensor, x: torch.Tensor, num_groups: int) -> None:
 
 
 class NhwcBackwardPlan(NamedTuple):
-    """The two launches of one :func:`gn_silu_nhwc_backward` call
-    (``csrc/gn_silu_nhwc_bwd.cu``): item ``b * k + i`` is positions ``[i *
-    rows, (i + 1) * rows)`` of batch row ``b`` (the last range of a row may
-    be shorter), one block of ``nhwc_bwd_sums`` and one of ``nhwc_bwd_dx``
-    each; ``nhwc_bwd_dx`` has ``grid - items`` more blocks, which sum dscale
-    and dbias."""
+    """The launch of one :func:`gn_silu_nhwc_backward` call
+    (``csrc/gn_silu_nhwc_bwd.cu``, ``nhwc_bwd_fused``): item ``b * k + i`` is
+    positions ``[i * rows, (i + 1) * rows)`` of batch row ``b`` (the last
+    range of a row may be shorter), all channels; block ``j`` of ``grid``
+    takes items ``j, j + grid, ...``, so the card takes the rows in
+    ``waves``.  A block keeps the first ``staged`` positions of ``buffers``
+    items' x and dy in shared memory and reads the rest again.  With two, a
+    block sums its next item before it waits for this one's row, so a row
+    may span two waves, and copies the item after next into a slot chunk by
+    chunk as it writes dx from it; with one, a wave is whole rows (the grid
+    a multiple of ``k``)."""
 
-    k: int      # ranges per batch row
-    rows: int   # positions per range
-    items: int  # blocks of nhwc_bwd_sums: B * k
-    grid: int   # blocks of nhwc_bwd_dx: items, then the parameter blocks
-    smem: int   # dynamic shared memory of a nhwc_bwd_dx block, bytes
-    work: int   # float32 workspace: [B * k, 2, C4] partial sums
+    k: int        # ranges per batch row
+    rows: int     # positions per range
+    staged: int   # positions of a range kept in shared memory
+    buffers: int  # items a block keeps at once: 2 or 1
+    items: int    # B * k
+    grid: int     # blocks launched, all resident at once
+    waves: int    # items of the busiest block
+    smem: int     # dynamic shared memory of a block, bytes
+    work: int     # float32 workspace: [B, 2, C4 + G] row sums, [B * k, 2, C4 + G] partials
 
 
-def nhwc_backward_smem(c4: int, groups: int) -> int:
-    """``nhwc_bwd_dx``'s dynamic shared memory (``bwd_smem_bytes`` in the
-    source), in bytes rounded up to 16: ``[2, C4]`` row sums, ``[4, G]``
-    group coefficients and the group-major channel list of ``G + 1 + C4``
-    ints."""
-    return -(-4 * (2 * c4 + 4 * groups + groups + 1 + c4) // 16) * 16
+def nhwc_backward_fixed_bytes(c4: int, groups: int, pack: int) -> int:
+    """Shared memory before the staging area (``bwd_fixed_bytes`` in the
+    source), in bytes rounded up to 128: 128 bytes of mbarriers and an int,
+    ``2 * pack * 512`` row-lane sums, ``[2, C4]`` channel sums, ``[C4]``
+    scale, ``[6, G]`` group sums and coefficients, and the group-major
+    channel list of ``G + 1 + C4`` ints."""
+    words = 2 * pack * _THREADS_BN + 3 * c4 + 6 * groups + groups + 1 + c4
+    return -(-(128 + 4 * words) // 128) * 128
+
+
+def nhwc_backward_item_bytes(staged: int, c4: int, groups: int, elem: int) -> int:
+    """One staged item (``bwd_item_bytes`` in the source): x and dy of
+    ``staged`` positions and the row's ``[G, 2]`` statistics, in bytes
+    rounded up to 16."""
+    return -(-(2 * staged * c4 * elem + 8 * groups) // 16) * 16
 
 
 @functools.lru_cache(maxsize=512)
-def nhwc_backward_plan(b: int, h: int, w: int, c4: int, groups: int, elem: int,
-                       sms: int) -> NhwcBackwardPlan:
-    """The plan of one NHWC backward call on a card of ``sms`` SMs: ``k``
-    ranges per row, as many as give the card up to ``_BWD_ITEMS_PER_SM``
-    blocks an SM (no more, so that no last wave of a few blocks trails: a
-    block of 512 threads fills an SM), but at most ``_MAX_RANGES_BN`` (each
-    dx block sums its row's ``k`` partials) and none under
-    ``_MIN_RANGE_BYTES`` of x (elements of ``elem`` bytes)."""
+def nhwc_backward_plan(b: int, h: int, w: int, c4: int, groups: int, elem: int, vec: bool,
+                       sms: int, per_sm: int) -> NhwcBackwardPlan:
+    """The plan of one NHWC backward call on a card of ``sms`` SMs that
+    holds ``per_sm`` blocks an SM at once (``nhwc_backward_blocks_per_sm``).
+    Ranges hold as many positions as a block keeps (x and dy, elements of
+    ``elem`` bytes, in what shared memory leaves), more of them where the
+    card would otherwise idle, none under ``_MIN_RANGE_BYTES`` of x.  A block
+    keeps two items at once where 16-byte spans (``vec``) let bulk copies
+    stage them, half the shared memory still holds a whole range, and there
+    is more than one wave; the grid is then every resident block.
+    Else one item, and a wave of as many whole rows as the resident blocks
+    hold, which it takes all of: a block waits for its row right after its
+    sums, so no row may wait for the next wave.  With two items a row may
+    have up to twice as many ranges as there are blocks: a block takes its
+    next item's ticket before it waits for this one's row."""
     hw, row_bytes = h * w, c4 * elem
-    k = max(1, min(_BWD_ITEMS_PER_SM * sms // b, _MAX_RANGES_BN,
-                   -(-hw * row_bytes // _MIN_RANGE_BYTES), hw))
-    rows = -(-hw // k)
-    k = -(-hw // rows)  # no empty range
+    blocks = sms * per_sm
+    room = _SMEM_MAX_BN - nhwc_backward_fixed_bytes(c4, groups,
+                                                    _PACK_BYTES_BN // elem if vec else 1)
+    spread = min(blocks // b, -(-hw * row_bytes // _MIN_RANGE_BYTES), hw)
+
+    def layout(buffers, whole_rows):
+        per_item = room // buffers // 16 * 16
+        cap = max(0, (per_item - 8 * groups) // (2 * row_bytes))  # positions kept
+        most = blocks if whole_rows else 2 * blocks  # ranges a row the waits allow
+        fewest = -(-hw // cap) if cap else most
+        k = max(1, min(most, max(fewest, spread)))
+        slots = max(1, min(b, blocks // k))
+        if whole_rows and slots < b:
+            k = blocks // slots  # the wave's rows take every block
+        rows = -(-hw // k)
+        k = -(-hw // rows)  # no empty range
+        return k, rows, min(rows, cap), slots * k if whole_rows else min(b * k, blocks)
+
+    buffers = 2
+    k, rows, staged, grid = layout(2, False)
+    if not (vec and staged == rows and b * k > grid):
+        buffers = 1
+        k, rows, staged, grid = layout(1, True)
     items = b * k
-    return NhwcBackwardPlan(k, rows, items, items + -(-c4 // _PARAM_WARPS_BN),
-                            nhwc_backward_smem(c4, groups), items * 2 * c4)
+    work = b * 2 * (c4 + groups) + (items * 2 * (c4 + groups) if k > 1 else 0)
+    return NhwcBackwardPlan(k, rows, staged, buffers, items, grid, -(-items // grid),
+                            _SMEM_MAX_BN - room
+                            + buffers * nhwc_backward_item_bytes(staged, c4, groups, elem), work)
 
 
-def nhwc_backward_plan_of(x: torch.Tensor, num_groups: int) -> NhwcBackwardPlan:
-    """The plan :func:`gn_silu_nhwc_backward` launches for CUDA ``x``."""
-    return nhwc_backward_plan(*x.shape, num_groups, x.element_size(), _sm_count(x.device))
+_BWD_PER_SM = {}
+
+
+def nhwc_backward_blocks_per_sm(device: torch.device, elem: int, vec: bool) -> int:
+    """The backward kernel's blocks that one SM of ``device`` holds at once
+    with the most shared memory a plan gives a block
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), once per device and
+    instantiation."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, elem, bool(vec))
+    if key not in _BWD_PER_SM:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            rc = _NHWC_BWD_LIB.get().gn_silu_nhwc_bwd_blocks_per_sm(elem, int(vec), _SMEM_MAX_BN,
+                                                                    ctypes.addressof(n))
+        if rc != 0 or n.value < 1:
+            raise RuntimeError(f"the NHWC backward kernel fits {n.value} blocks an SM "
+                               f"(CUDA error {rc})")
+        _BWD_PER_SM[key] = n.value
+    return _BWD_PER_SM[key]
+
+
+def nhwc_backward_plan_of(x: torch.Tensor, num_groups: int,
+                          dy: Optional[torch.Tensor] = None) -> NhwcBackwardPlan:
+    """The plan :func:`gn_silu_nhwc_backward` launches for CUDA ``x`` (and
+    ``dy``: its dx, fresh from the caching allocator, is 16-byte aligned; the
+    launcher checks all three pointers against the plan)."""
+    c4, elem = x.shape[-1], x.element_size()
+    vec = c4 % (16 // elem) == 0 and all(t.data_ptr() % 16 == 0 for t in (x, dy)
+                                         if t is not None)
+    return nhwc_backward_plan(*x.shape, num_groups, elem, vec, _sm_count(x.device),
+                              nhwc_backward_blocks_per_sm(x.device, elem, vec))
 
 
 def gn_silu_nhwc_backward(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
@@ -711,11 +784,12 @@ def gn_silu_nhwc_backward(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor
                           stats: Optional[torch.Tensor] = None):
     """The gradient of :func:`gn_silu_nhwc` for NHWC ``x`` (f32 or bf16) and
     ``dy`` of ``x``'s type and shape: ``(dx, dscale, dbias)``, dx in
-    ``x.dtype``, the others f32 ``[C4]``.  CUDA tensors run the two kernels
-    of ``csrc/gn_silu_nhwc_bwd.cu``, planned by :func:`nhwc_backward_plan`,
-    and need ``stats``, the ``[B, G, 2]`` statistics :func:`gn_silu_nhwc`
-    wrote for the same ``x``; ``order`` as for the forward.
-    ``gn_silu_nhwc_backward.launches`` counts its calls (two kernels each)."""
+    ``x.dtype``, the others f32 ``[C4]`` (views of one buffer).  CUDA tensors
+    run the kernel of ``csrc/gn_silu_nhwc_bwd.cu``, one cooperative launch
+    planned by :func:`nhwc_backward_plan`, and need ``stats``, the ``[B, G,
+    2]`` statistics :func:`gn_silu_nhwc` wrote for the same ``x``; ``order``
+    as for the forward.  ``gn_silu_nhwc_backward.launches`` counts its
+    launches."""
     if x.device.type == "cpu":
         return gn_silu_nhwc_backward_reference(x, dy, scale, bias, group_of, num_groups, count,
                                                offset, eps)
@@ -735,17 +809,19 @@ def gn_silu_nhwc_backward(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor
     dy = dy.contiguous()
     lib = _NHWC_BWD_LIB.get()
     fn = lib.gn_silu_nhwc_bwd_bf16 if x.dtype == torch.bfloat16 else lib.gn_silu_nhwc_bwd_f32
-    plan = nhwc_backward_plan_of(x, num_groups)
+    plan = nhwc_backward_plan_of(x, num_groups, dy)
     dx = torch.empty_like(x)
-    work = torch.empty(plan.work, dtype=torch.float32, device=x.device)
-    dscale = torch.empty(c4, dtype=torch.float32, device=x.device)
-    dbias = torch.empty(c4, dtype=torch.float32, device=x.device)
+    # one allocation for the workspace (first, 16-byte aligned), dbias and dscale
+    buf = torch.empty(plan.work + 2 * c4, dtype=torch.float32, device=x.device)
+    dbias, dscale = buf[plan.work:plan.work + c4], buf[plan.work + c4:]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                 group_of.data_ptr(), order.data_ptr(), stats.data_ptr(), dx.data_ptr(),
-                work.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), b, h, w, c4, num_groups,
-                plan.k, plan.rows, plan.grid, plan.smem, _divisor(h, w, count, offset),
-                int(offset), eps, torch.cuda.current_stream(x.device).cuda_stream)
+                buf.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
+                _tickets(x.device, stream, b).data_ptr(), b, h, w, c4, num_groups,
+                plan.k, plan.rows, plan.staged, plan.buffers, plan.grid, plan.smem,
+                _divisor(h, w, count, offset), int(offset), eps, stream)
     if rc != 0:
         raise RuntimeError(f"gn_silu_nhwc_backward kernel launch failed: CUDA error {rc} "
                            f"(plan {plan}, shape {tuple(x.shape)}, G={num_groups})")

@@ -1,8 +1,9 @@
 """The port's data modules against the JAX package's (``sddm_tpu/data``), on
 the same files: the WAV codec (arrays equal), every dataset through its
 loader (every batch of two epochs equal, ``validation_split`` and its
-held-out loader included, ``num_workers`` 0, and 2 where nothing is
-drawn), the WaveGrad collate at a seed (equal), and the synthetic corpus
+held-out loader included, ``num_workers`` 0; 2 where nothing is drawn; the
+port's random-crop loaders at 2 and 4 workers against JAX's at 0), the
+WaveGrad collate at a seed (equal), and the synthetic corpus
 generator (the WAV files byte for byte), at versions 1 and 2 and splits
 ``test`` and ``test_hard``.  The corpus CLI writes the test split with
 ``seed + 1``, as the root script does."""
@@ -78,32 +79,41 @@ def test_ram_cache_reader_equals_jax(wav_root):
     np.testing.assert_array_equal(got[0], want[0])
 
 
-# (dataset args, loader, loader args)
+# (dataset, datatype, dataset args, loader, loader args)
 LOADERS = {
-    "audio_crop_shuffled": (dict(T=1024, seed=3), "AudioDataLoader",
+    "audio_crop_shuffled": ("AudioDataset", ".wav", dict(T=1024, seed=3), "AudioDataLoader",
                             dict(batch_size=2, shuffle=True)),
     # T over the longest file (7000 samples): every item padded, nothing drawn
-    "audio_pad_ordered": (dict(T=8000), "AudioDataLoader", dict(batch_size=3, shuffle=False)),
-    "audio_ram_cache_split": (dict(T=1024, seed=1, cache="ram"), "AudioDataLoader",
-                              dict(batch_size=2, validation_split=2)),
-    "audio_fraction_split": (dict(T=2048, seed=2), "AudioDataLoader",
+    "audio_pad_ordered": ("AudioDataset", ".wav", dict(T=8000), "AudioDataLoader",
+                          dict(batch_size=3, shuffle=False)),
+    "audio_ram_cache_split": ("AudioDataset", ".wav", dict(T=1024, seed=1, cache="ram"),
+                              "AudioDataLoader", dict(batch_size=2, validation_split=2)),
+    "audio_fraction_split": ("AudioDataset", ".wav", dict(T=2048, seed=2), "AudioDataLoader",
                              dict(batch_size=2, validation_split=0.3, drop_last=True)),
-    "infer": (dict(T=1500), "InferDataLoader", dict(batch_size=2)),
+    "infer": ("InferDataset", ".wav", dict(T=1500), "InferDataLoader", dict(batch_size=2)),
+    "wavegrad_crop": ("NumpyDataset", ".spec.npy", {}, "WaveGradDataLoader",
+                      dict(batch_size=3, hop_samples=64, crop_mel_frames=62)),
 }
+# the loaders that draw random crops
+RANDOM_CROPS = ["audio_crop_shuffled", "audio_ram_cache_split", "audio_fraction_split",
+                "wavegrad_crop"]
 
 
 @pytest.mark.parametrize("case,workers", [(c, 0) for c in sorted(LOADERS)]
-                         + [("audio_pad_ordered", 2), ("infer", 2)])
+                         + [("audio_pad_ordered", 2), ("infer", 2)]
+                         + [(c, w) for c in RANDOM_CROPS for w in (2, 4)])
 def test_loader_batches_equal_jax(case, workers, wav_root):
-    """Random crops draw from the dataset's one generator, so with worker
-    threads their order (in both packages) is the threads'; the cases with
-    two workers are the ones without random crops."""
-    ds_args, loader, loader_args = LOADERS[case]
-    ds_name = "InferDataset" if loader == "InferDataLoader" else "AudioDataset"
+    """The port's loader at ``workers`` against the JAX package's.  The port
+    draws its random crops in batch order whatever the worker count, while
+    the JAX package's worker threads draw from the dataset's one generator in
+    their own order; so a loader that draws crops is held against JAX's at 0
+    workers, the others against JAX's at the same count."""
+    ds_name, datatype, ds_args, loader, loader_args = LOADERS[case]
     out = []
-    for mod in (tloaders, jloaders):
-        ds = mod.DATASETS[ds_name](wav_root, ".wav", sample_rate=16000, **ds_args)
-        dl = mod.DATA_LOADERS[loader](ds, num_workers=workers, **loader_args)
+    for mod, n_workers in ((tloaders, workers),
+                           (jloaders, 0 if case in RANDOM_CROPS else workers)):
+        ds = mod.DATASETS[ds_name](wav_root, datatype, sample_rate=16000, **ds_args)
+        dl = mod.DATA_LOADERS[loader](ds, num_workers=n_workers, **loader_args)
         epochs = [list(dl), list(dl)]  # two epochs: the per-epoch reshuffle and crops
         val = dl.split_validation()
         if val is not None:

@@ -5,11 +5,12 @@
 engine's ``_GN`` -> ``jax.nn.silu`` (-> offset mask), what XLA
 differentiates when the JAX package trains its packed twin, on the same
 seeded numpy inputs; ``gradcheck`` of ``GroupNormSiLUNhwcFunction``; and the
-CUDA kernels' plan (``nhwc_backward_plan``) and order of summation, which run
+CUDA kernel's plan (``nhwc_backward_plan``) and order of summation, which run
 here without a card: the plan's constants against
 ``csrc/gn_silu_nhwc_bwd.cu``, its cover of every position and channel at the
-flagship's 33 packed sites and odd shapes, and a float32 transcription of
-the kernels' sums held against the plain version.
+flagship's 33 packed sites and odd shapes (each element staged once at the
+flagship's sites, the schedule of tickets getting through), and a float32
+transcription of the kernel's sums held against the plain version.
 
 Tolerances, as max |d| against the largest |reference| of each output
 (``scale``): float32 2e-6 of the scale (the sums are taken in other orders;
@@ -32,6 +33,7 @@ import torch
 
 from sddm_tpu.models.unet_packed import _GN, _offset_mask_np
 from sddm_tpu.models.unet_packed import _packed_gn_plan as jax_gn_plan
+from sddm_tpu_torch import compare_gn_silu_backward
 from sddm_tpu_torch.models.unet_packed import _packed_gn_plan
 from sddm_tpu_torch.ops import gn_silu as ops
 from sddm_tpu_torch.ops.gn_silu import (
@@ -48,7 +50,7 @@ from sddm_tpu_torch.ops.gn_silu import (
 
 BF16_ULP = 2.0**-7
 REL = 2e-6
-SMS = 132  # an H100's SMs
+SMS, PER_SM = 132, 1  # an H100's SMs; the kernel's blocks an SM
 
 # (B, H, W, sections, groups, offset, packed): a decoder concat whose group
 # map interleaves two sections, an identity (unpacked) site, an offset site
@@ -260,28 +262,81 @@ ODD_SHAPES = [(9, 5, 32, 4), (11, 7, 36, 3), (5, 7, 30, 5), (3, 3, 4096, 2)]
 
 
 def test_plan_constants_match_the_kernel_source():
-    """The plan's copies of the kernels' block size, range cap, parameter
-    block width and shared-memory ceiling and formula."""
+    """The plan's copies of the kernel's block size, shared-memory ceiling and
+    fixed shared memory; one block of that ceiling fits an H100 SM (228 KB,
+    1 KB kept a block)."""
     src = ops.NHWC_BACKWARD_SOURCE.read_text()
-    for name, value in (("kThreadsB", ops._THREADS_BN), ("kMaxRangesB", ops._MAX_RANGES_BN),
-                        ("kParamWarpsB", ops._PARAM_WARPS_BN), ("kSmemMaxB", ops._SMEM_MAX_BN)):
+    for name, value in (("kThreadsB", ops._THREADS_BN), ("kSmemMaxB", ops._SMEM_MAX_BN),
+                        ("kBlocksPerSmB", PER_SM)):
         assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value, name
-    assert "return ((4 * (2 * C4 + 4 * G + G + 1 + C4) + 15) / 16) * 16;" in src
-    for c4, g in ((128, 32), (1280, 32), (30, 5), (4096, 1024)):
-        assert ops.nhwc_backward_smem(c4, g) == ((4 * (2 * c4 + 4 * g + g + 1 + c4) + 15)
-                                                 // 16) * 16
-    assert ops.nhwc_backward_smem(4096, 1024) <= ops._SMEM_MAX_BN
+    assert ops._SMEM_MAX_BN + 1024 <= 233472
+    assert int(re.search(r"constexpr int kPackBytesB = (\d+);", src).group(1)) == \
+        ops._PACK_BYTES_BN
+    assert ("return ((128 + 4 * (2 * P * kThreadsB + 3 * C4 + 6 * G + G + 1 + C4) + 127) / 128) "
+            "* 128;" in src)
+    assert "return ((2 * (int64_t)staged * C4 * elem + 8 * (int64_t)G + 15) / 16) * 16;" in src
+    for c4, g, pack in ((128, 32, 8), (1280, 32, 4), (30, 5, 1), (4096, 1024, 8)):
+        words = 2 * pack * 512 + 3 * c4 + 6 * g + g + 1 + c4
+        assert ops.nhwc_backward_fixed_bytes(c4, g, pack) == ((128 + 4 * words + 127) // 128) * 128
+    for staged, c4, g, elem in ((63, 256, 32, 2), (1, 30, 5, 2), (7, 36, 3, 4)):
+        assert ops.nhwc_backward_item_bytes(staged, c4, g, elem) == \
+            -(-(2 * staged * c4 * elem + 8 * g) // 16) * 16
+    assert ops.nhwc_backward_fixed_bytes(4096, 1024, 8) <= ops._SMEM_MAX_BN
+    # one cooperative launch, whose kernel name the profiler checks match
+    assert "cudaLaunchCooperativeKernel" in src and "nhwc_bwd_fused" in src
     # the forward's statistics reach the backward only through the optional buffer
     assert "float* stats;" in ops.SOURCE.read_text()
+
+
+def _schedule_finishes(p) -> bool:
+    """Run the kernel's schedule: block j takes items j, j + grid, ...; A
+    (an item's sums) takes its row's ticket (the kernel takes it at the start
+    of the next B, before any wait, or at the end of A(0)), B (its dx) waits
+    until the row's k items have taken theirs; a block runs A(0), A(1)...
+    and B(0), B(1)... in the kernel's order (two buffers: A(t), then B(t -
+    1); one: A(t), B(t)).  True when every block gets through."""
+    steps = []
+    for j in range(p.grid):
+        mine = list(range(j, p.items, p.grid))
+        if p.buffers == 2:
+            seq = [("A", mine[0])]
+            for t in range(1, len(mine)):
+                seq += [("A", mine[t]), ("B", mine[t - 1])]
+            seq.append(("B", mine[-1]))
+        else:
+            seq = [step for item in mine for step in (("A", item), ("B", item))]
+        steps.append(seq)
+    cursor = [0] * p.grid
+    taken = np.zeros(p.items // p.k, np.int64)
+    progressed = True
+    while progressed:
+        progressed = False
+        for j, seq in enumerate(steps):
+            while cursor[j] < len(seq):
+                kind, item = seq[cursor[j]]
+                if kind == "A":
+                    taken[item // p.k] += 1
+                elif taken[item // p.k] < p.k:
+                    break
+                cursor[j] += 1
+                progressed = True
+    return all(c == len(seq) for c, seq in zip(cursor, steps))
 
 
 @pytest.mark.parametrize("elem", [2, 4])
 @pytest.mark.parametrize("b", [1, 3, 16, 200])
 def test_plan_covers_every_position_and_channel_once(b, elem):
+    """Every position of a row in one range, every item in one block, no
+    block with two items of a row, the grid no larger than the resident
+    blocks, what a block stages within its shared memory, and the schedule
+    of tickets gets through (no block waits for a row that cannot
+    finish)."""
     shapes = [(h, w, c4, g) for h, w, c4, g, _ in FLAGSHIP_SITES] + ODD_SHAPES
+    blocks = SMS * PER_SM
     for h, w, c4, groups in shapes:
         hw = h * w
-        p = nhwc_backward_plan(b, h, w, c4, groups, elem, SMS)
+        vec = c4 % (16 // elem) == 0
+        p = nhwc_backward_plan(b, h, w, c4, groups, elem, vec, SMS, PER_SM)
         where = f"[{b}, {h}, {w}, {c4}] elem {elem}: {p}"
         covered = np.zeros(hw, np.int64)
         for k in range(p.k):
@@ -289,21 +344,74 @@ def test_plan_covers_every_position_and_channel_once(b, elem):
             assert start < stop, where
             covered[start:stop] += 1
         assert (covered == 1).all(), where
-        assert 1 <= p.k <= ops._MAX_RANGES_BN and p.items == b * p.k, where
-        # one dx block an item, then C4 / 16 parameter blocks, a warp a channel
-        n_param = p.grid - p.items
-        assert n_param * ops._PARAM_WARPS_BN >= c4 > (n_param - 1) * ops._PARAM_WARPS_BN, where
-        assert p.smem == ops.nhwc_backward_smem(c4, groups) <= ops._SMEM_MAX_BN, where
-        assert p.work == p.items * 2 * c4, where
-        # up to two blocks an SM, no more, where the rows allow it
-        assert p.items <= max(ops._BWD_ITEMS_PER_SM * SMS, b), where
+        assert p.items == b * p.k and 1 <= p.grid <= min(p.items, blocks), where
+        assert p.waves == -(-p.items // p.grid), where
+        # a block holds at most one item of a row (two with two buffers)
+        assert p.k <= p.grid * p.buffers, where
+        owner = np.arange(p.items) % p.grid  # block of each item
+        wave = np.arange(p.items) // p.grid
+        if p.buffers == 1:  # a wave is whole rows: no row waits for the next wave
+            assert all(len(set(owner[r * p.k:(r + 1) * p.k])) == p.k for r in range(b)), where
+            assert p.grid % p.k == 0, where
+            assert all(len(set(wave[r * p.k:(r + 1) * p.k])) == 1 for r in range(b)), where
+        else:  # every resident block
+            assert p.grid == min(p.items, blocks), where
+        fixed = ops.nhwc_backward_fixed_bytes(c4, groups, ops._PACK_BYTES_BN // elem if vec else 1)
+        assert 0 <= p.staged <= p.rows and p.buffers in (1, 2), where
+        # two items a block only with bulk copies, every position staged, and
+        # more than one wave
+        assert p.buffers == 1 or (vec and p.staged == p.rows and p.waves > 1), where
+        each = ops.nhwc_backward_item_bytes(p.staged, c4, groups, elem)
+        assert p.smem == fixed + p.buffers * each <= ops._SMEM_MAX_BN, where
+        more = ops.nhwc_backward_item_bytes(p.staged + 1, c4, groups, elem)
+        assert (fixed + p.buffers * more > ops._SMEM_MAX_BN) or p.staged == p.rows, where
+        assert p.work == b * 2 * (c4 + groups) + (p.items * 2 * (c4 + groups) if p.k > 1
+                                                   else 0), where
+        if b <= 16:
+            assert _schedule_finishes(p), where
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+def test_plan_stages_each_flagship_element_once(elem):
+    """At the 33 packed sites of a batch-16 step every position of x and dy
+    is kept in shared memory by the one block that reads it (no reread), and
+    a wave's staged bytes fit the grid's shared memory."""
+    for h, w, c4, groups, _ in FLAGSHIP_SITES:
+        p = nhwc_backward_plan(16, h, w, c4, groups, elem, True, SMS, PER_SM)
+        assert p.staged == p.rows, p
+        staged = sum(min(p.rows, h * w - k * p.rows) for k in range(p.k)) * 16
+        assert staged == 16 * h * w, p
+        pack = ops._PACK_BYTES_BN // elem
+        room = ops._SMEM_MAX_BN - ops.nhwc_backward_fixed_bytes(c4, groups, pack)
+        assert p.buffers * ops.nhwc_backward_item_bytes(p.rows, c4, groups, elem) <= room, p
 
 
 def test_plan_of_the_largest_site():
-    p = nhwc_backward_plan(16, 128, 64, 256, 32, 2, SMS)
-    assert (p.k, p.rows, p.items, p.grid) == (16, 512, 256, 272)  # two waves of 128
-    assert nhwc_backward_plan(1, 128, 64, 256, 32, 2, SMS).k == ops._MAX_RANGES_BN
-    assert nhwc_backward_plan(16, 8, 4, 160, 32, 2, SMS).k == 1  # 10 KB a row
+    # bf16: two items of 102 positions a block, 81 a row, 10 waves
+    p = nhwc_backward_plan(16, 128, 64, 256, 32, 2, True, SMS, PER_SM)
+    assert (p.k, p.rows, p.staged, p.buffers, p.items, p.grid, p.waves) == \
+        (81, 102, 102, 2, 1296, 132, 10)
+    # f32: two items of 53 positions, a row's 155 ranges over two waves
+    p = nhwc_backward_plan(16, 128, 64, 256, 32, 4, True, SMS, PER_SM)
+    assert (p.k, p.rows, p.staged, p.buffers, p.items, p.grid, p.waves) == \
+        (155, 53, 53, 2, 2480, 132, 19)
+    # without 16-byte spans, one item a block and a wave of one whole row
+    p = nhwc_backward_plan(16, 128, 64, 256, 32, 4, False, SMS, PER_SM)
+    assert (p.k, p.buffers, p.grid % p.k) == (131, 1, 0)
+    # the offset site
+    p = nhwc_backward_plan(16, 129, 65, 128, 32, 2, True, SMS, PER_SM)
+    assert (p.k, p.grid, p.waves, p.buffers) == (41, 132, 5, 2)
+    # B = 1 spreads a row over the card; a small row is one block's
+    assert nhwc_backward_plan(1, 128, 64, 256, 32, 2, True, SMS, PER_SM).k == 131
+    assert nhwc_backward_plan(16, 8, 4, 160, 32, 2, True, SMS, PER_SM).k == 1  # 10 KB a row
+    # without 16-byte packs one item a block
+    assert nhwc_backward_plan(16, 128, 64, 256, 32, 2, False, SMS, PER_SM).buffers == 1
+    # a row longer than the card holds: k up to the grid, the rest of a range read again
+    p = nhwc_backward_plan(1, 512, 128, 256, 32, 2, True, SMS, PER_SM)
+    assert (p.k, p.grid, p.rows, p.staged, p.buffers) == (132, 132, 497, 205, 1)
+    # the widest channels the kernel takes: one position a range
+    p = nhwc_backward_plan(2, 4, 4, 4096, 1024, 4, True, SMS, PER_SM)
+    assert (p.k, p.rows, p.staged) == (16, 1, 1)
 
 
 def _sequential(rows: np.ndarray) -> np.ndarray:
@@ -315,30 +423,82 @@ def _sequential(rows: np.ndarray) -> np.ndarray:
 
 
 def _butterfly(lanes: np.ndarray) -> np.ndarray:
-    """``warp_sum``: 32 lanes (axis 0) folded by xor shuffles 16, 8, 4, 2, 1;
-    lane 0's value."""
+    """``warp_sum`` and ``fold_ranks``' tree: L lanes (axis 0, a power of two)
+    folded by xor shuffles L / 2, ..., 2, 1; lane 0's value."""
     v = lanes.astype(np.float32)
-    for off in (16, 8, 4, 2, 1):
-        v = v + v[np.arange(32) ^ off]
+    n = len(v)
+    off = n // 2
+    while off:
+        v = v + v[np.arange(n) ^ off]
+        off //= 2
     return v[0]
 
 
-def _kernel_order(x, dy, sc, bi, group_of, groups, count, offset, sms, eps=1e-5):
-    """The two kernels' order of summation, transcribed in float32: each
-    thread's row lane summed in order, the row lanes folded by four running
-    sums then ((0 + 1) + (2 + 3)); each row's ranges in rank order, times
-    scale; each group's members by 32 lanes and a shuffle tree; dscale and
-    dbias by 32 lanes over the items and a shuffle tree.  The statistics are
-    the plain version's (the forward's are held in
-    tests/test_torch_gn_silu_nhwc.py)."""
+def _lanes_over(vals: np.ndarray, n_lanes: int) -> np.ndarray:
+    """The sum over axis 0 by ``n_lanes`` lanes: lane q sums entries q, q +
+    n_lanes, ... in order, then the shuffle tree."""
+    lanes = np.stack([_sequential(vals[q::n_lanes]) if q < len(vals)
+                      else np.zeros(vals.shape[1:], np.float32) for q in range(n_lanes)])
+    return _butterfly(lanes)
+
+
+def _fold_lanes(nv: int) -> int:
+    """``fold_ranks``' lanes a value when the block sums ``nv`` values."""
+    lanes = 1
+    while lanes < 32 and nv * 2 * lanes <= ops._THREADS_BN:
+        lanes *= 2
+    return lanes
+
+
+def _fold_ranks(vals: np.ndarray, lo: int, hi: int) -> np.ndarray:
+    """``fold_ranks`` of values ``[lo, hi)`` (last axis) of ``vals`` ``[K,
+    ..., V]`` over its ranks (axis 0), by one block."""
+    return _lanes_over(vals[..., lo:hi], _fold_lanes(hi - lo))
+
+
+def _four_sums(rows: np.ndarray) -> np.ndarray:
+    """Sum over axis 0 by four running sums over rows 0, 1, 2, 3 (mod 4),
+    then ((0 + 1) + (2 + 3)), in float32."""
+    acc = np.zeros((4,) + rows.shape[1:], np.float32)
+    i = 0
+    while i + 3 < len(rows):
+        acc = acc + rows[i:i + 4]
+        i += 4
+    while i < len(rows):
+        acc[0] = acc[0] + rows[i]
+        i += 1
+    return (acc[0] + acc[1]) + (acc[2] + acc[3])
+
+
+def _fold_groups(vals: np.ndarray) -> np.ndarray:
+    """``fold_groups`` of ``vals`` ``[K, G2]`` over its ranks: G2 / 4
+    threads a rank, Q = 512 / (G2 / 4) lanes, lane q summing ranks q, q + Q,
+    ... in order, then the lanes by four running sums."""
+    nq = ops._THREADS_BN // (vals.shape[1] // 4)
+    return _four_sums(np.stack([_sequential(vals[q::nq]) for q in range(nq)]))
+
+
+def _kernel_order(x, dy, sc, bi, group_of, groups, count, offset, sms, per_sm=PER_SM,
+                  eps=1e-5):
+    """The kernel's order of summation, transcribed in float32: per item,
+    each thread's row lane summed in order and the row lanes folded by four
+    running sums then ((0 + 1) + (2 + 3)); the item's group partials, each
+    group's members times scale by ``ml`` lanes (the largest group's members
+    to a power of two, up to 32) and a shuffle tree; each row's
+    group sums over the row's ranks by ``fold_groups`` (or, without 16-byte
+    spans or with an odd G, ``fold_ranks``' lanes and shuffle tree; an
+    item's own where the row is one range); after the items, each block's
+    share of the rows' channel sums over their ranks, and of dscale and
+    dbias over the rows, by ``fold_ranks``.  The statistics are the plain version's (the
+    forward's are held in tests/test_torch_gn_silu_nhwc.py)."""
     b, h, w, c4 = x.shape
     n = np.float32(_divisor(h, w, count, offset))
-    p = nhwc_backward_plan(b, h, w, c4, groups, 4, sms)
-    P = 4 if c4 % 4 == 0 else 1
+    P = ops._PACK_BYTES_BN // 4 if c4 % 4 == 0 else 1  # float32: 16-byte spans at C4 % 4 == 0
+    p = nhwc_backward_plan(b, h, w, c4, groups, 4, P > 1, sms, per_sm)
     V = c4 // P
-    CT = -(-V // 512)
+    CT = -(-V // ops._THREADS_BN)
     VT = -(-V // CT)
-    RL = 512 // VT
+    RL = ops._THREADS_BN // VT
     stats = torch.empty(b, groups, 2)
     gn_silu_nhwc_reference(torch.from_numpy(x), torch.from_numpy(sc), torch.from_numpy(bi),
                            torch.from_numpy(group_of), groups, count, offset, stats=stats)
@@ -353,55 +513,66 @@ def _kernel_order(x, dy, sc, bi, group_of, groups, count, offset, sms, eps=1e-5)
     y = xhat * sc + bi
     s = (1.0 / (1.0 + np.exp(-y.astype(np.float64)))).astype(np.float32)
     dz = g_y * (s * (np.float32(1.0) + y * (np.float32(1.0) - s)))
-    part = np.zeros((b, p.k, 2, c4), np.float32)
+    order = group_order(torch.from_numpy(group_of), groups)
+    offsets, members = order[:groups + 1].tolist(), order[groups + 1:].numpy()
+    ml = 1  # lanes a group's partial: the largest group's members, to a power of two
+    while ml < 32 and ml < max(offsets[g + 1] - offsets[g] for g in range(groups)):
+        ml *= 2
+    part_c = np.zeros((b, p.k, 2, c4), np.float32)
+    part_g = np.zeros((b, p.k, 2, groups), np.float32)
     for row in range(b):
         for k in range(p.k):
             lo, hi = k * p.rows, min(h * w, (k + 1) * p.rows)
             for which, vals in enumerate((dz[row, lo:hi], dz[row, lo:hi] * xhat[row, lo:hi])):
                 lane_sums = np.stack([_sequential(vals[l::RL]) if l < len(vals)
                                       else np.zeros(c4, np.float32) for l in range(RL)])
-                acc = np.zeros((4, c4), np.float32)
-                l = 0
-                while l + 3 < RL:
-                    acc = acc + lane_sums[l:l + 4]
-                    l += 4
-                while l < RL:
-                    acc[0] = acc[0] + lane_sums[l]
-                    l += 1
-                part[row, k, which] = (acc[0] + acc[1]) + (acc[2] + acc[3])
-    order = group_order(torch.from_numpy(group_of), groups)
-    offsets, members = order[:groups + 1].tolist(), order[groups + 1:].numpy()
+                part_c[row, k, which] = _four_sums(lane_sums)
+            scaled = part_c[row, k] * sc  # [2, C4], each product rounded on its own
+            for gi in range(groups):
+                part_g[row, k, :, gi] = _lanes_over(
+                    scaled[:, members[offsets[gi]:offsets[gi + 1]]].T, ml)
     dx = np.empty_like(xs)
+    row_c = np.empty((b, 2, c4), np.float32)
+    if p.k > 1:  # each row's channel sums, block i taking pairs [i * per, (i + 1) * per)
+        pairs = part_c.reshape(b, p.k, 2 * c4).transpose(1, 0, 2).reshape(p.k, b * 2 * c4)
+        per = -(-b * 2 * c4 // p.grid)
+        row_c[:] = np.concatenate([_fold_ranks(pairs, j0, min(j0 + per, b * 2 * c4))
+                                   for j0 in range(0, b * 2 * c4, per)]).reshape(b, 2, c4)
     for row in range(b):
-        red = _sequential(part[row]) * sc  # [2, C4]
+        if p.k > 1:  # every item of the row sums the row's group partials
+            flat = part_g[row].reshape(p.k, 2 * groups)
+            if P > 1 and groups % 2 == 0:
+                gsum = _fold_groups(flat).reshape(2, groups)
+            else:
+                gsum = _fold_ranks(flat, 0, 2 * groups).reshape(2, groups)
+        else:
+            gsum, row_c[row] = part_g[row, 0], part_c[row, 0]
         for gi in range(groups):
-            m = members[offsets[gi]:offsets[gi + 1]]
-            lanes = np.zeros((32, 2), np.float32)
-            for j in range(32):
-                lanes[j] = _sequential(red[:, m[j::32]].T) if j < len(m) else 0.0
-            a_g, b_g = _butterfly(lanes[:, 0]) / n, _butterfly(lanes[:, 1]) / n
-            if v[row, gi] < 0:
-                b_g = np.float32(0.0)
+            a_g = gsum[0, gi] / n
+            b_g = np.float32(0.0) if v[row, gi] < 0 else gsum[1, gi] / n
             ch = group_of == gi
-            dx[row][:, ch] = r[row, gi] * ((dz[row][:, ch] * sc[ch] - a_g) - xhat[row][:, ch] * b_g)
-    items = part.reshape(b * p.k, 2, c4)
-    lanes = np.stack([_sequential(items[j::32]) if j < len(items)
-                      else np.zeros((2, c4), np.float32) for j in range(32)])
-    params = _butterfly(lanes)
+            k1, k0, k2 = r[row, gi] * sc[ch], -(r[row, gi] * a_g), -(r[row, gi] * b_g)
+            dx[row][:, ch] = k1 * dz[row][:, ch] + (k2 * xhat[row][:, ch] + k0)
+    flat = row_c.reshape(b, 2 * c4)
+    per = -(-2 * c4 // p.grid)  # block i sums values [i * per, (i + 1) * per) over the rows
+    params = np.concatenate([_fold_ranks(flat, j0, min(j0 + per, 2 * c4))
+                             for j0 in range(0, 2 * c4, per)]).reshape(2, c4)
     return dx.reshape(x.shape), params[1], params[0]
 
 
-@pytest.mark.parametrize("b,h,w,sections,groups,offset,packed,sms", [
-    (2, 32, 16, (16,), 4, False, True, SMS),   # K = 32 ranges a row
-    (2, 33, 17, (16,), 4, True, True, SMS),    # offset site, ranges start mid-row
-    (5, 9, 5, (8,), 4, True, True, 4),         # K = 2 on a small card
-    (1, 16, 8, (8, 4), 4, False, True, SMS),   # B = 1, a concatenated plan
-    (3, 4, 2, (20,), 4, False, False, SMS),    # identity site
+@pytest.mark.parametrize("b,h,w,sections,groups,offset,packed,sms,per_sm", [
+    (2, 32, 16, (16,), 4, False, True, SMS, PER_SM),  # 8 ranges a row
+    (2, 33, 17, (16,), 4, True, True, SMS, PER_SM),   # offset site, ranges start mid-row
+    (5, 9, 5, (8,), 4, True, True, 4, 1),             # one range a row, 5 rows on 4 blocks
+    (1, 16, 8, (8, 4), 4, False, True, SMS, PER_SM),  # B = 1, a concatenated plan
+    (3, 4, 2, (20,), 4, False, False, SMS, PER_SM),   # identity site
+    (4, 64, 32, (16,), 4, False, True, 4, 1),         # ranges past the shared memory: reread
+    (2, 8, 8, (128,), 4, False, True, 4, 1),          # two buffers; row 1 spans two waves
 ])
 def test_kernel_order_of_summation_matches_the_plain_version(b, h, w, sections, groups, offset,
-                                                             packed, sms):
+                                                             packed, sms, per_sm):
     x, dy, sc, bi, group_of, count = _site(b, h, w, sections, groups, offset, packed, seed=b * h)
-    got = _kernel_order(x, dy, sc, bi, group_of, groups, count, offset, sms)
+    got = _kernel_order(x, dy, sc, bi, group_of, groups, count, offset, sms, per_sm)
     want = gn_silu_nhwc_backward_reference(*_args(x, dy, sc, bi, group_of, torch.float64),
                                            groups, count, offset)
     _hold([torch.from_numpy(np.asarray(a)) for a in got], want, torch.float32)
@@ -415,3 +586,76 @@ def test_kernel_order_with_a_clamped_group():
     got = _kernel_order(x, dy, sc, bi, group_of, 4, count, False, SMS)
     want = gn_silu_nhwc_backward_reference(*_args(x, dy, sc, bi, group_of), 4, count, False)
     _hold([torch.from_numpy(np.asarray(a)) for a in got], want, torch.float32, rel=1e-5)
+
+
+def test_compare_keeps_the_earlier_nhwc_plan():
+    """``compare_gn_silu_backward --layout nhwc`` launches the two-launch
+    design it replaced with that design's own plan: k ranges a row (up to
+    two 512-thread blocks an SM, at most 32, none under 16 KB of x), one dx
+    block an item and one a 16 channels of dscale and dbias."""
+    plan = compare_gn_silu_backward.earlier_nhwc_plan
+    k, rows, grid, smem, work = plan(16, 128, 64, 256, 32, 2, SMS)
+    assert (k, rows, grid) == (16, 512, 16 * 16 + 16) and work == 16 * 16 * 2 * 256
+    assert smem == -(-4 * (2 * 256 + 4 * 32 + 32 + 1 + 256) // 16) * 16
+    assert plan(1, 128, 64, 256, 32, 2, SMS)[0] == 32
+    assert plan(16, 8, 4, 160, 32, 2, SMS)[0] == 1  # 10 KB a row
+
+
+def test_compare_nhwc_refuses_without_a_card(tmp_path):
+    assert compare_gn_silu_backward.main(["--layout", "nhwc", "--earlier",
+                                          str(tmp_path / "none.cu")]) == 2
+
+
+def _pipeline(mine: int, buffers: int, chunks: int):
+    """The kernel's order of copies and waits for a block of ``mine`` items
+    (``nhwc_bwd_fused``'s main loop, transcribed): every slot's first item
+    copied first, chunk by chunk; A(t) waits for each chunk of item t before
+    it reads it; with two buffers A(t), then B(t - 1), which copies chunk c of
+    item t + 1 into the slot once it has written dx from chunk c; with one
+    A(t), then B(t), which copies item t + 1."""
+    events = []
+
+    def copy(t, c):
+        if t < mine:
+            events.append(("copy", t, c))
+
+    for t in range(buffers):
+        for c in range(chunks):
+            copy(t, c)
+
+    def finish(t, nxt):
+        for c in range(chunks):
+            events.append(("dx", t, c))
+            copy(nxt, c)
+
+    for t in range(mine + (1 if buffers > 1 else 0)):
+        if t < mine:
+            for c in range(chunks):
+                events.append(("wait", t, c))
+        if buffers == 1:
+            finish(t, t + 1)
+        elif t >= 1:
+            finish(t - 1, t + 1)
+    return events
+
+
+@pytest.mark.parametrize("buffers,chunks", [(1, 1), (2, 4)])
+@pytest.mark.parametrize("mine", [1, 2, 3, 4, 7, 16])
+def test_pipeline_copies_each_chunk_once_before_its_use(mine, buffers, chunks):
+    """Each chunk of each item is copied once, into slot t % buffers, before
+    A(t) waits for it; that wait (parity (t / buffers) & 1 on the chunk's
+    mbarrier) meets the copy of item t, the slot's (t / buffers)-th; no chunk
+    of a slot is copied into again before B of its item has read it."""
+    events = _pipeline(mine, buffers, chunks)
+    want = [(t, c) for t in range(mine) for c in range(chunks)]
+    assert sorted((t, c) for kind, t, c in events if kind == "copy") == want
+    assert sorted((t, c) for kind, t, c in events if kind == "wait") == want
+    assert sorted((t, c) for kind, t, c in events if kind == "dx") == want
+    at = {e: i for i, e in enumerate(events)}
+    for t, c in want:
+        assert at[("copy", t, c)] < at[("wait", t, c)] < at[("dx", t, c)]
+        copies_before = [u for kind, u, cc in events[:at[("wait", t, c)]]
+                         if kind == "copy" and cc == c and u % buffers == t % buffers]
+        assert copies_before[t // buffers] == t  # the phase the wait meets
+        if t + buffers < mine:  # the chunk's next copy waits for B(t) to read it
+            assert at[("copy", t + buffers, c)] > at[("dx", t, c)]

@@ -39,3 +39,13 @@ def test_probe_refuses_without_a_card(capsys):
     assert not torch.cuda.is_available()
     assert profiler_window_probe.main(["--seconds", "0"]) == 2
     assert "runs on the card" in capsys.readouterr().err
+
+
+def test_retry_windows_start_at_the_margin_and_widen():
+    """A measurement's later windows only widen: the default margin three
+    times, then longer ones, the last with the CPU activity traced too."""
+    from sddm_tpu_torch.utils.profiling import PROFILE_MARGIN_S, RETRY_WINDOWS
+
+    margins = [m for m, _ in RETRY_WINDOWS]
+    assert margins[:3] == [PROFILE_MARGIN_S] * 3 and margins == sorted(margins)
+    assert RETRY_WINDOWS[-1][1] and not any(cpu for _, cpu in RETRY_WINDOWS[:3])
