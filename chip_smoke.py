@@ -371,11 +371,21 @@ variable engines' 33 GroupNorm+SiLU sites run ``gn_silu_nhwc`` forward and
      launches); the four requests served from the dropout config (eval mode) bit for
      bit as at dropout 0; ``python -m sddm_tpu_torch.train`` (in this process) one epoch
      of [25]'s files at dropout 0.1: 25 steps, finite losses, 825 + 825 launches, 16
-     masks a step.
+     masks a step;
+ 53. serving over the data mesh: the flagship's epoch-250 checkpoint through
+     ``load_enhancer`` (packed, ancestral-12) on the four requests (9 rows, one batch
+     of 16), against the same serve in this process from the same seed: (a) two gloo
+     ranks sharing the card, 8 rows each (``python -m sddm_tpu_torch.parallel.dryrun
+     --serve``), float32 and bf16 at ``MESH_F32_REL`` / ``MESH_BF16_REL``, 396
+     ``nhwc_gn_silu`` launches and no fallback on each rank; (b) ``torchrun
+     --standalone --nproc_per_node=1`` (NCCL) bit for bit; (c) ``warmup()``'s seconds,
+     then ``load_enhancer(warmup=True, warmup_timeout_s=...)`` serving the same bits;
+     (d) ``batch_rows`` 3, which two ranks do not divide, served whole on each.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing of JAX
-or of the JAX package.
+or of the JAX package.  ``python3 chip_smoke.py --serve-mesh-cards N`` runs
+phase 53 alone with its ranks over NCCL on a card each (needs N cards).
 """
 
 from __future__ import annotations
@@ -763,6 +773,20 @@ DROPOUT = 0.1
 DROPOUT_SITES, DROPOUT_EST_SITES = 16, 6
 DROPOUT_SIGMAS = 5.0
 DROPOUT_TIMED_STEPS = 10
+
+# Serving over the data mesh (phase 53).  Limits, stated in PERF.md before the first run: (a)
+# the flagship's four requests (9 rows, one batch of 16) served by MESH_RANKS gloo ranks sharing
+# the card, 8 rows a rank, against one process from the same generator seed: every rank the same
+# bits; float32 (TF32 off) at rel L2 MESH_F32_REL, bf16 at MESH_BF16_REL ([6]'s E2E_TOL rel,
+# tighter than [47]'s 5e-2); 396 nhwc_gn_silu launches and no fallback on each rank; (b)
+# `torchrun --standalone --nproc_per_node=1` (NCCL) serving bf16 bit for bit as one process, 396
+# launches; (c) a serve built with warmup_timeout_s at MESH_WARMUP_FACTOR times warmup()'s
+# seconds (at least MESH_WARMUP_FLOOR) returns the same bits; (d) batch_rows MESH_ODD_ROWS, which
+# two ranks do not divide, served whole on each rank, float32 at MESH_F32_REL from one process.
+MESH_RANKS, MESH_TIMEOUT, MESH_DEVICE, MESH_BACKEND = 2, 300, "cuda", "gloo"
+MESH_F32_REL, MESH_BF16_REL = 1e-5, 2e-2
+MESH_ODD_ROWS = 3
+MESH_WARMUP_FACTOR, MESH_WARMUP_FLOOR = 10.0, 60.0
 
 
 def log(msg: str = "") -> None:
@@ -5810,6 +5834,130 @@ def dropout_phase(work: Path, val_root: Path, audios, device) -> dict:
     return record
 
 
+def serve_mesh_phase(work: Path, audios, device) -> dict:
+    """Phase 53: the flagship's epoch-250 checkpoint served through
+    ``load_enhancer`` (packed engine, ancestral-12) over a data mesh, against
+    the same serves in this process from the same generator seed: (a)
+    ``MESH_RANKS`` gloo ranks sharing the card (``python -m
+    sddm_tpu_torch.parallel.dryrun --serve``), float32 and bf16; (b)
+    ``torchrun --standalone --nproc_per_node=1`` (NCCL), bf16, bit for bit;
+    (c) ``Enhancer.warmup``'s seconds, then a serve built with a
+    ``warmup_timeout_s`` well above them; (d) ``batch_rows`` the ranks do not
+    divide, served whole on each rank."""
+    import numpy as np
+
+    from sddm_tpu_torch import load_enhancer
+    from sddm_tpu_torch.parallel.dryrun import serve_inputs, serve_parity, serve_records
+
+    phase_start = time.perf_counter()
+    config = json.loads((RUN / "config.json").read_text())
+    ckpt = RUN / "model_best.ckpt"
+    f32 = {"dtype": "float32"}
+    cases = [dict(name=name, checkpoint=str(ckpt), steps=STEPS, seed=SEED, **case)
+             for name, case in (("float32", dict(batch_rows=BATCH_ROWS, config=f32)),
+                                ("bfloat16", dict(batch_rows=BATCH_ROWS)),
+                                ("nondividing", dict(batch_rows=MESH_ODD_ROWS, config=f32)))]
+    gloo_in = serve_inputs(work / "mesh_gloo.npz", config, audios, cases)
+    nccl_in = serve_inputs(work / "mesh_nccl.npz", config, audios, cases[1:2])
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node=1", "-m", "sddm_tpu_torch.parallel.dryrun", "--serve",
+                str(nccl_in), str(work / "mesh_nccl"), "--device", MESH_DEVICE]
+
+    def timed(fn, *args, **kwargs):
+        start = time.perf_counter()
+        return fn(*args, **kwargs), time.perf_counter() - start
+
+    # the two launches at once, each rank its own process on the card; one process meanwhile
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        gloo_f = pool.submit(timed, serve_parity, gloo_in, work / "mesh_gloo", MESH_RANKS,
+                             device=MESH_DEVICE, backend=MESH_BACKEND, timeout=MESH_TIMEOUT)
+        nccl_f = pool.submit(timed, subprocess.run, torchrun, cwd=str(ROOT), capture_output=True,
+                             text=True, timeout=MESH_TIMEOUT)
+        single = {}
+        for case in cases:
+            enh = load_enhancer(ckpt, {**config, **case.get("config", {})},
+                                batch_rows=case["batch_rows"], steps=STEPS)
+            single[case["name"]] = serve_requests(enh, audios, SEED, device)[0]
+            del enh
+        gloo, gloo_s = gloo_f.result()
+        proc, nccl_s = nccl_f.result()
+    n_rows = sum(math.ceil(a.size / config["num_samples"]) for a in audios)
+    failures, record = [], {"gloo_seconds": gloo_s, "torchrun_seconds": nccl_s}
+
+    def held(name, got, limit, rows, sharded):
+        """Check one case's ranks against the single-process serve; its record."""
+        ranks = got["ranks"]
+        same = all(np.array_equal(a, b) for outs in got["outputs"][1:]
+                   for a, b in zip(outs, got["outputs"][0]))
+        bits = all(np.array_equal(a, b) for a, b in zip(got["outputs"][0], single[name]))
+        err, rel = served_differences(got["outputs"][0], single[name])
+        calls = math.ceil(n_rows / rows) if not sharded else math.ceil(n_rows / BATCH_ROWS)
+        want = PACKED_SITES * STEPS * calls
+        launches = [r["launches"]["gn_silu_nhwc"] for r in ranks]
+        finite = all(np.isfinite(y).all() and y.shape == a.shape
+                     for a, y in zip(audios, got["outputs"][0]))
+        ok = (finite and same and (bits if limit is None else rel <= limit)
+              and launches == [want] * len(ranks)
+              and all(r["launches"]["gn_silu"] == 0 and r["engine"] == "PackedUNetModified2"
+                      and r["engine_fallback"] is None and r["sharded"] == sharded
+                      and r["rows"] == rows for r in ranks))
+        log(f"    {name}: {[r['rows'] for r in ranks]} rows a call on {len(ranks)} rank(s) "
+            f"({ranks[0]['backend']}, sharded {sharded}); every rank the same bits: {same}; "
+            f"against one process: bit for bit {bits}, max|d| {err:.3e}, rel L2 {rel:.3e} "
+            f"(limit {'bit for bit' if limit is None else limit}); nhwc_gn_silu launches by "
+            f"rank {launches} (expected {want}); engines {[r['engine'] for r in ranks]}, "
+            f"fallback {[r['engine_fallback'] for r in ranks]}; serve "
+            f"{[round(r['seconds'], 3) for r in ranks]} s {'ok' if ok else 'OVER'}")
+        if not ok:
+            failures.append(f"{name}: same {same}, bits {bits}, rel {rel}, launches {launches}, "
+                            f"finite {finite}, ranks {ranks}")
+        return {"max_abs": err, "rel_l2": rel, "bit_equal": bits, "ranks_equal": same,
+                "launches": launches, "rows": [r["rows"] for r in ranks],
+                "seconds": [r["seconds"] for r in ranks]}
+
+    log(f"[53] the flagship (packed engine, ancestral-{STEPS}, {len(audios)} requests, {n_rows} "
+        f"rows) served over a data mesh against one process from seed {SEED}:")
+    log(f"    (a) {MESH_RANKS} {MESH_BACKEND or 'NCCL'} ranks "
+        f"{'sharing the card' if MESH_BACKEND else 'on a card each'} ({gloo_s:.1f} s for the "
+        f"launch):")
+    for name, limit in (("float32", MESH_F32_REL), ("bfloat16", MESH_BF16_REL)):
+        record[name] = held(name, gloo[name], limit, BATCH_ROWS // MESH_RANKS, True)
+    log(f"    (b) torchrun --standalone --nproc_per_node=1 (NCCL; {nccl_s:.1f} s):")
+    if proc.returncode != 0:
+        fail(f"[53] {' '.join(torchrun[2:])} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    nccl = serve_records(nccl_in, work / "mesh_nccl", 1)["bfloat16"]
+    record["torchrun"] = held("bfloat16", nccl, None, BATCH_ROWS, False)
+    if nccl["ranks"][0]["backend"] != "nccl":
+        failures.append(f"(b) backend {nccl['ranks'][0]['backend']}")
+
+    # (c) warmup's seconds, then a serve built under a limit well above them
+    enh = load_enhancer(ckpt, config, batch_rows=BATCH_ROWS, steps=STEPS)
+    warm_s = [enh.warmup(), enh.warmup()]
+    limit_s = max(MESH_WARMUP_FLOOR, MESH_WARMUP_FACTOR * warm_s[0])
+    start = time.perf_counter()
+    enh = load_enhancer(ckpt, config, batch_rows=BATCH_ROWS, steps=STEPS, warmup=True,
+                        warmup_timeout_s=limit_s)
+    load_s = time.perf_counter() - start
+    warmed = serve_requests(enh, audios, SEED, device)[0]
+    del enh
+    bits = all(np.array_equal(a, b) for a, b in zip(warmed, single["bfloat16"]))
+    record["warmup"] = {"seconds": warm_s, "limit_s": limit_s, "load_s": load_s,
+                        "bit_equal": bits}
+    log(f"    (c) Enhancer.warmup(): {warm_s[0]:.3f} s, again {warm_s[1]:.3f} s; load_enhancer("
+        f"warmup=True, warmup_timeout_s={limit_s:.1f}) returned in {load_s:.2f} s and served "
+        f"the same bits as without it: {bits}")
+    if not bits:
+        failures.append("(c) the warmed-up serve differs")
+    log(f"    (d) batch_rows {MESH_ODD_ROWS} over the {MESH_RANKS} ranks:")
+    record["nondividing"] = held("nondividing", gloo["nondividing"], MESH_F32_REL,
+                                 MESH_ODD_ROWS, False)
+    record["seconds"] = time.perf_counter() - phase_start
+    log(f"    phase 53: {record['seconds']:.1f} s")
+    if failures:
+        fail(f"[53] {failures}")
+    return record
+
+
 def requests(n: int = 4):
     """Seeded noisy requests of 1-3 s at 16 kHz: harmonic tones under a
     syllable-rate envelope plus white noise at 5 dB SNR."""
@@ -6121,6 +6269,7 @@ def main() -> int:
         ddp = gloo_ddp_phase(config, net_args, work, device)
         readers = readers_phase(work, work / "synth" / "test", smi)
         drop = dropout_phase(work, work / "synth" / "test", audios, device)
+        mesh = serve_mesh_phase(work, audios, device)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     nhwc_bwd_record["launches"] = packed_step["launches"]["gn_silu_nhwc_backward"]
@@ -6132,6 +6281,8 @@ def main() -> int:
     dw_record["launches_vocoder_end_check"] = vocoder_cli["layer_launches"]
     dw_record["max_abs_err_vocoder_end_check"] = vocoder_cli["max_abs_err"]
     nhwc_record["launches_file_to_score"] = f2s["nhwc_launches"]
+    nhwc_record["launches_serve_mesh_by_rank"] = mesh["bfloat16"]["launches"]
+    nhwc_record["launches_serve_torchrun"] = mesh["torchrun"]["launches"][0]
     bwd_record["launches_training_cli"] = training["from_init"]["launches"][1]
     bwd_record["launches_snr_train_step"] = snr["joint_train_step"]["launches"]["gn_silu_backward"]
     bwd_record["launches_snr_estimator_cli"] = snr["estimator_cli"]["launches"][1]
@@ -6227,6 +6378,7 @@ def main() -> int:
         "gloo_ddp_step": ddp,
         "readers": readers,
         "dropout": drop,
+        "serve_mesh": mesh,
         "build_seconds": {"gn_silu": built["seconds"], "diffwave_stack": dw_built["seconds"],
                           "gn_silu_backward": bwd_built["seconds"],
                           "gn_silu_nhwc_backward": nhwc_bwd_built["seconds"]},
@@ -6246,5 +6398,37 @@ def main() -> int:
     return 0
 
 
+def serve_mesh_cards(n: int) -> int:
+    """``python3 chip_smoke.py --serve-mesh-cards N``: phase 53 alone, its
+    ranks over NCCL on a card each (needs ``N`` cards), after the GN forward
+    build; prints the phase's record and the cards' ``nvidia-smi`` line."""
+    global MESH_RANKS, MESH_BACKEND
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        fail(f"--serve-mesh-cards {n} needs {n} CUDA cards")
+    sys.path.insert(0, str(ROOT))
+    from sddm_tpu_torch.ops.gn_silu import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    log(f"[1] {torch.cuda.device_count()} cards: {' | '.join(smi.splitlines())}")
+    log(f"[2] build: {build()['seconds']:.2f} s")
+    MESH_RANKS, MESH_BACKEND = n, None
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        record = serve_mesh_phase(work, requests(), torch.device("cuda"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(smi)
+    print(json.dumps(finite_or_none(record)), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--serve-mesh-cards"]:
+        sys.exit(serve_mesh_cards(int(sys.argv[2])))
     sys.exit(main())

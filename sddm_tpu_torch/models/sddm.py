@@ -189,10 +189,49 @@ class SDDM:
             return x, torch.stack(traj)
         return x
 
+    def draw_noise_stream(self, shape, generator: torch.Generator | None, device=None,
+                          dtype=torch.float32, cut=None) -> tuple:
+        """The draws :meth:`infer` makes from ``generator`` for a condition of
+        ``shape`` (the waveform samplers, whose x_T has the condition's shape),
+        as its ``noise_stream``: x_T's, None where the ``supportive`` start
+        draws none, then one a step, None where DDIM at eta 0 draws none, in
+        ``infer``'s order and shapes, each passed through ``cut`` (a rank's
+        rows, say).  With ``cut`` taking rows ``r``, ``infer(condition[r],
+        noise_stream=...)`` gives rows ``r`` of ``infer(condition, generator)``
+        up to the network's rounding at the other row count, and leaves
+        ``generator`` where that call leaves it.  A step's draw is made when the
+        sampler asks for it, so one step's batch is held at a time."""
+        def draw():
+            noise = torch.randn(shape, generator=generator, device=device, dtype=dtype)
+            return noise if cut is None else cut(noise)
+
+        xT = None if self.p_transition == "supportive" else draw()
+        if self.p_transition in ("ddim", "ddim_conditional") and self.ddim_eta == 0.0:
+            return xT, None
+        return xT, _StepDraws(self.num_timesteps, draw)
+
     def sample_interval(self) -> int:
         """The stride of the intermediate samples ``infer --continuous``
         writes: ``1 | (T // 100)``."""
         return 1 | (self.num_timesteps // 100)
+
+
+class _StepDraws:
+    """The step draws of :meth:`SDDM.draw_noise_stream`: ``[i]`` makes step
+    ``i``'s draw, in order, as ``SDDM.infer`` asks for each once."""
+
+    def __init__(self, n: int, draw):
+        self.n, self.draw, self.next = n, draw, 0
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        if i != self.next or i >= self.n:
+            raise IndexError(f"step draws are made in order, {self.n} of them: asked for {i}, "
+                             f"next is {self.next}")
+        self.next += 1
+        return self.draw()
 
 
 class SDDM_spectrogram(SDDM):

@@ -1,7 +1,9 @@
-"""Training over many ranks (counterpart of ``sddm_tpu/parallel``): the world
-and its meshes (``mesh``), per-rank dataset shards (``multihost``), channel
-tensor parallelism (``tensor``) and :func:`parallel_model`, which the
-trainers call to run their step over a mesh."""
+"""Training and serving over many ranks (counterpart of ``sddm_tpu/parallel``):
+the world and its meshes (``mesh``: also the row gather and the verdict
+reduction that ``enhance.Enhancer`` serves a batch with), per-rank dataset
+shards (``multihost``), channel tensor parallelism (``tensor``) and
+:func:`parallel_model`, which the trainers call to run their step over a
+mesh."""
 
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ from .mesh import (
     DATA_AXIS,
     MODEL_AXIS,
     Mesh,
+    all_finite,
+    gather_rows,
     global_mean,
     init_world,
     make_mesh,
@@ -28,7 +32,9 @@ __all__ = [
     "MODEL_AXIS",
     "Mesh",
     "PerHostLoader",
+    "all_finite",
     "data_parallel",
+    "gather_rows",
     "global_mean",
     "init_world",
     "leaf_spec",

@@ -1,5 +1,5 @@
-"""Train steps over several processes, launched as ``torchrun`` launches them
-(counterpart of ``__graft_entry__.dryrun_multichip``).
+"""Train steps and served batches over several processes, launched as ``torchrun``
+launches them (counterpart of ``__graft_entry__.dryrun_multichip``).
 
 :func:`dryrun_multichip` starts ``n`` gloo CPU processes that run the
 shipped ``make_train_step`` once on the tiny flagship (72 samples, inner 8,
@@ -19,20 +19,31 @@ launches, rows and sharded parameters to ``rank<r>.json``.  A network with
 ``rank_seed(0, data rank)``; each rank writes the first step's masks to
 ``rank<r>_masks.npz``.  Parity runs: TF32 off.
 
+:func:`serve_parity` serves given requests through ``load_enhancer`` over a
+data mesh of ``n`` ranks, case by case (a checkpoint, a config's overrides,
+``batch_rows``, steps, the engine, the generator's seed, a rank whose canary
+is made to fail, a warmup limit), and writes each rank's gathered outputs
+to ``<case>/rank<r>.npz`` and its engine, rows, kernel launches and seconds
+to ``<case>/rank<r>.json``.  Parity runs: TF32 off.
+
 Usage: python -m sddm_tpu_torch.parallel.dryrun [N]
        python -m sddm_tpu_torch.parallel.dryrun [N] --step INPUTS.npz OUT_DIR
            [--model-parallel 1,2] [--device cpu|cuda]
+       python -m sddm_tpu_torch.parallel.dryrun [N] --serve INPUTS.npz OUT_DIR
+           [--device cpu|cuda]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
 import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -256,11 +267,103 @@ def step_parity(inputs: Path, out_dir: Path, ranks: int, model_parallel=(1,),
     return out
 
 
+def _serve_worker(inputs: Path, out_dir: Path, device: str) -> None:
+    """One rank of :func:`serve_parity`."""
+    from unittest import mock
+
+    from ..enhance import Enhancer, load_enhancer
+    from ..ops.gn_silu import gn_silu, gn_silu_nhwc
+    from . import make_mesh
+    from .mesh import world_rank, world_size
+
+    data = np.load(inputs)
+    config = json.loads(str(data["config"]))
+    audios = [data[f"request_{i}"] for i in range(int(data["requests"]))]
+    mesh = make_mesh(device=device)
+    dev, rank = mesh.device, world_rank()
+
+    def synchronize():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    for case in json.loads(str(data["cases"])):
+        timeout = case.get("warmup_timeout_s")
+        failing = case.get("fail_canary_rank") == rank
+        with mock.patch.object(Enhancer, "_canary", lambda self: False) if failing \
+                else contextlib.nullcontext():
+            enh = load_enhancer(case["checkpoint"], {**config, **case.get("config", {})},
+                                batch_rows=case["batch_rows"], steps=case.get("steps", 0),
+                                ddim=case.get("ddim", False), packed=case.get("packed", True),
+                                mesh=mesh, warmup=timeout is not None, warmup_timeout_s=timeout,
+                                validate_packed=case.get("validate_packed", True))
+        warmup_s = enh.warmup() if timeout is not None else None
+        enh.generator = torch.Generator(device=dev).manual_seed(case["seed"])
+        synchronize()
+        gn_silu.launches = gn_silu_nhwc.launches = 0
+        start = time.perf_counter()
+        outputs = enh.enhance_batch(audios)
+        synchronize()
+        seconds = time.perf_counter() - start
+        sub = out_dir / case["name"]
+        sub.mkdir(parents=True, exist_ok=True)
+        np.savez(sub / f"rank{rank}.npz", *outputs)
+        (sub / f"rank{rank}.json").write_text(json.dumps({
+            "rank": rank, "ranks": world_size(), "device": str(dev),
+            "backend": torch.distributed.get_backend(), "engine": type(enh.model.network).__name__,
+            "engine_fallback": enh.engine_fallback, "sharded": enh.sharded,
+            "rows": enh.batch_rows // mesh.n_data if enh.sharded else enh.batch_rows,
+            "launches": {"gn_silu_nhwc": gn_silu_nhwc.launches, "gn_silu": gn_silu.launches},
+            "seconds": seconds, "warmup_s": warmup_s,
+            "cuda_initialized": torch.cuda.is_initialized()}))
+
+
+def serve_inputs(path: Path, config: dict, audios, cases) -> Path:
+    """Write :func:`serve_parity`'s inputs: ``config`` (a dict), the requests
+    ``audios`` (1-D arrays) and ``cases``, dicts with ``name``,
+    ``checkpoint`` (a path), ``batch_rows`` and ``seed``, and optionally
+    ``config`` (top-level keys over the config's), ``steps``, ``ddim``,
+    ``packed``, ``validate_packed``, ``fail_canary_rank`` and
+    ``warmup_timeout_s`` (``warmup=True`` with that limit, then one more
+    ``warmup()`` timed)."""
+    np.savez(path, config=json.dumps(config), cases=json.dumps(cases, default=str),
+             requests=len(audios), **{f"request_{i}": np.asarray(a, np.float32)
+                                      for i, a in enumerate(audios)})
+    return path
+
+
+def serve_records(inputs: Path, out_dir: Path, ranks: int) -> dict:
+    """What ``ranks`` ranks of :func:`_serve_worker` wrote under ``out_dir``:
+    ``{case: {"ranks": every rank's record, "outputs": every rank's list of
+    served waveforms}}``."""
+    with np.load(inputs) as data:
+        names = [case["name"] for case in json.loads(str(data["cases"]))]
+    out = {}
+    for name in names:
+        sub = out_dir / name
+        out[name] = {"ranks": [], "outputs": []}
+        for r in range(ranks):
+            out[name]["ranks"].append(json.loads((sub / f"rank{r}.json").read_text()))
+            with np.load(sub / f"rank{r}.npz") as served:
+                out[name]["outputs"].append([served[f"arr_{i}"] for i in range(len(served.files))])
+    return out
+
+
+def serve_parity(inputs: Path, out_dir: Path, ranks: int, device: str = "cpu",
+                 backend: str | None = None, timeout: float = 600.0) -> dict:
+    """Run :func:`_serve_worker` on ``ranks`` ranks over the inputs of
+    :func:`serve_inputs`; returns :func:`serve_records`.  ``backend="gloo"``
+    with ``device="cuda"`` runs every rank on the one card over gloo."""
+    env = {"SDDM_DRYRUN_BACKEND": backend} if backend else None
+    launch(["--serve", inputs, out_dir, "--device", device], ranks, timeout, env)
+    return serve_records(inputs, out_dir, ranks)
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("ranks", nargs="?", type=int,
                         help="launch the dry run over this many gloo CPU ranks")
     parser.add_argument("--step", nargs=2, metavar=("INPUTS", "OUT_DIR"))
+    parser.add_argument("--serve", nargs=2, metavar=("INPUTS", "OUT_DIR"))
     parser.add_argument("--model-parallel", default="1",
                         help="comma-separated model-axis sizes, one mesh each (1: data mesh)")
     parser.add_argument("--device", default="cpu")
@@ -270,16 +373,24 @@ def main(argv=None) -> None:
         from .mesh import finish_world, init_world
 
         torch.set_num_threads(1)
-        if args.step:
+        if args.step or args.serve:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
             torch.set_float32_matmul_precision("highest")
             init_world(args.device, backend=os.environ.get("SDDM_DRYRUN_BACKEND"))
+        if args.serve:
+            _serve_worker(Path(args.serve[0]), Path(args.serve[1]), args.device)
+        elif args.step:
             for m in mps:
                 _step_worker(Path(args.step[0]), Path(args.step[1]) / f"mp{m}", m, args.device)
         else:
             _dryrun_worker()
         finish_world()
+        return
+    if args.serve:
+        record = serve_parity(Path(args.serve[0]), Path(args.serve[1]), args.ranks or 2,
+                              args.device)
+        print(json.dumps({name: r["ranks"] for name, r in record.items()}))
         return
     if args.step:
         record = step_parity(Path(args.step[0]), Path(args.step[1]), args.ranks or 2, mps,

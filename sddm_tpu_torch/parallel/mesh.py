@@ -11,8 +11,10 @@ this process alone and every helper here leaves the run as it was.
 the model axis fastest (``parallel/tensor.py``), with its
 ``torch.distributed`` ``DeviceMesh``.  :func:`make_mesh` is the 1-D data
 mesh over the world, :func:`replicate` broadcasts rank 0's parameters and
-buffers, :func:`shard_batch` cuts this rank's rows out of a global batch and
-:func:`global_mean` averages a value over the data axis.
+buffers, :func:`shard_batch` cuts this rank's rows out of a global batch,
+:func:`gather_rows` puts it back together on every rank, :func:`global_mean`
+averages a value over the data axis and :func:`all_finite` reduces a verdict
+over the world.
 """
 
 from __future__ import annotations
@@ -190,6 +192,44 @@ def shard_batch(batch, mesh: Mesh):
         raise ValueError(f"global batch {rows} not divisible by {mesh.n_data} data ranks")
     local = rows // mesh.n_data
     return batch[mesh.data_rank * local:(mesh.data_rank + 1) * local]
+
+
+def _on_card(group) -> bool:
+    """Whether ``group``'s collectives take CUDA tensors (NCCL); gloo's take
+    host tensors for an all-gather."""
+    return "nccl" in str(dist.get_backend(group))
+
+
+def gather_rows(local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The global batch on every rank: each data rank's ``local`` rows (equal
+    counts) stacked in data rank order, the inverse of :func:`shard_batch`.
+    NCCL gathers on the card.  Gloo cannot all-gather CUDA tensors, so under
+    gloo, and under ``-d cpu``, it gathers host copies and the result lies on
+    the host.  ``local`` itself when the data axis has one rank."""
+    if not mesh.distributed or mesh.n_data == 1:
+        return local
+    group = mesh.group(DATA_AXIS)
+    if local.is_cuda and _on_card(group):
+        out = local.new_empty((mesh.n_data * local.shape[0],) + tuple(local.shape[1:]))
+        dist.all_gather_into_tensor(out, local.contiguous(), group=group)
+        return out
+    host = local.detach().cpu().contiguous()
+    parts = [torch.empty_like(host) for _ in range(mesh.n_data)]
+    dist.all_gather(parts, host, group=group)
+    return torch.cat(parts)
+
+
+def all_finite(flag: bool, mesh: Mesh) -> bool:
+    """Whether ``flag`` (a rank's verdict, such as a canary's finite output)
+    holds on every rank of the world: an all-reduce of the minimum, so that
+    every rank takes the same decision.  ``flag`` itself without a process
+    group."""
+    if not mesh.distributed:
+        return bool(flag)
+    on_card = mesh.device.type == "cuda" and _on_card(None)
+    verdict = torch.tensor([int(bool(flag))], device=mesh.device if on_card else "cpu")
+    dist.all_reduce(verdict, op=dist.ReduceOp.MIN)
+    return bool(verdict.item())
 
 
 def global_mean(value: torch.Tensor, mesh: Mesh) -> torch.Tensor:
