@@ -37,6 +37,7 @@ from .models.unet_modified2 import UNetModified2
 from .models.unet_packed import PackedUNetModified2
 from .parallel.mesh import all_finite, gather_rows, make_mesh, replicate, shard_batch
 from .train.checkpoints import load_checkpoint
+from .utils.profiling import span
 
 
 def resolve_device(device=None) -> torch.device:
@@ -181,24 +182,50 @@ class Enhancer:
 
     def enhance_batch(self, audios: Sequence[np.ndarray]) -> List[np.ndarray]:
         """Enhance a list of arbitrary-length mono waveforms (under a mesh,
-        every rank gives every rank's requests and gets every output)."""
-        chunks = [self._chunk(a) for a in audios]
-        rows = np.concatenate(chunks, axis=0)
-        owners = np.concatenate([np.full(c.shape[0], i) for i, c in enumerate(chunks)])
+        every rank gives every rank's requests and gets every output).
 
-        outputs = np.zeros_like(rows)
-        for start in range(0, rows.shape[0], self.batch_rows):
-            block = rows[start : start + self.batch_rows]
-            n_real = block.shape[0]
-            if n_real < self.batch_rows:
-                pad = np.zeros((self.batch_rows - n_real,) + block.shape[1:], block.dtype)
-                block = np.concatenate([block, pad], axis=0)
-            cond = torch.from_numpy(block).to(self.device)
-            out = self._sample(cond, self.generator)
-            outputs[start : start + n_real] = out[:n_real].float().cpu().numpy()
+        Spans (``utils/profiling``, while recording): ``enhance.call`` with
+        ``rows``, ``padding_rows``, ``samples_in``, ``samples_sampled``;
+        inside it ``enhance.chunk`` (rows in, answers out), and for each
+        block ``enhance.to_device``, the sampler's ``sampler.call``,
+        ``enhance.wait`` (on a card: the wait for an event recorded once the
+        sampler returns, which the block's outputs precede) and
+        ``enhance.to_host``."""
+        with span("enhance.call") as call:
+            with span("enhance.chunk"):
+                chunks = [self._chunk(a) for a in audios]
+                rows = np.concatenate(chunks, axis=0)
+                owners = np.concatenate([np.full(c.shape[0], i) for i, c in enumerate(chunks)])
 
-        return [outputs[owners == i].reshape(-1)[: np.asarray(a).size]
-                for i, a in enumerate(audios)]
+            outputs = np.zeros_like(rows)
+            for start in range(0, rows.shape[0], self.batch_rows):
+                with span("enhance.to_device"):
+                    block = rows[start : start + self.batch_rows]
+                    n_real = block.shape[0]
+                    if n_real < self.batch_rows:
+                        pad = np.zeros((self.batch_rows - n_real,) + block.shape[1:], block.dtype)
+                        block = np.concatenate([block, pad], axis=0)
+                    cond = torch.from_numpy(block).to(self.device)
+                out = self._sample(cond, self.generator)
+                with span("enhance.wait") as waited:
+                    if waited is not None and self.device.type == "cuda":
+                        # the copy back would wait here anyway: no result changes
+                        ready = torch.cuda.Event()
+                        ready.record(torch.cuda.current_stream(self.device))
+                        ready.synchronize()
+                with span("enhance.to_host"):
+                    outputs[start : start + n_real] = out[:n_real].float().cpu().numpy()
+
+            with span("enhance.chunk"):
+                answers = [outputs[owners == i].reshape(-1)[: np.asarray(a).size]
+                           for i, a in enumerate(audios)]
+            if call is not None:
+                sampled = -(-rows.shape[0] // self.batch_rows) * self.batch_rows
+                call.attrs.update(rows=int(rows.shape[0]),
+                                  padding_rows=int(sampled - rows.shape[0]),
+                                  samples_in=int(sum(a.size for a in answers)),
+                                  samples_sampled=int(sampled * self.num_samples))
+            return answers
 
     def enhance(self, audio: np.ndarray) -> np.ndarray:
         return self.enhance_batch([audio])[0]

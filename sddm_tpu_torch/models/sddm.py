@@ -36,6 +36,7 @@ from ..diffusion import transitions as tr
 from ..diffusion import variable as var
 from ..diffusion.schedule import DiffusionSchedule, subsample_schedule
 from ..ops.framing import Segmentor
+from ..utils.profiling import span
 from .dropout import DropoutMasks, deterministic
 
 NOISE_CONDITIONS = ("sqrt_alpha_bar", "time_step")
@@ -171,23 +172,36 @@ class SDDM:
         ``prepare_condition`` hooks runs them once here, outside the loop.
         ``return_trajectory=True`` returns ``(x_0, traj)`` with ``traj`` every
         step's state stacked, ``[T, B, ...]`` (``traj[-1]`` is x_0); the draws
-        are the same either way."""
-        sched = self.diffusion.to(condition.device)
-        xT_noise, step_noises = noise_stream if noise_stream is not None else (None, None)
-        x = self._x_T(sched, condition, generator, xT_noise)
-        prepare = getattr(self.network, "prepare", None)
-        prep = prepare() if prepare is not None else None
-        prepare_condition = getattr(self.network, "prepare_condition", None)
-        cond_ctx = prepare_condition(prep, condition) if prepare_condition is not None else None
-        traj = []
-        for i, t in enumerate(range(self.num_timesteps, 0, -1)):
-            nz = step_noises[i] if step_noises is not None else None
-            x = self._reverse_step(sched, condition, x, t, generator, nz, prep, cond_ctx)
+        are the same either way.
+
+        Spans (``utils/profiling``, while recording): ``sampler.call`` over
+        the call, inside it ``sampler.prepare`` (x_T and the network's hooks)
+        and ``sampler.step`` (attr ``t``) for each reverse step."""
+        with span("sampler.call"):
+            condition = self._featurize(condition)
+            sched = self.diffusion.to(condition.device)
+            xT_noise, step_noises = noise_stream if noise_stream is not None else (None, None)
+            with span("sampler.prepare"):
+                x = self._x_T(sched, condition, generator, xT_noise)
+                prepare = getattr(self.network, "prepare", None)
+                prep = prepare() if prepare is not None else None
+                prepare_condition = getattr(self.network, "prepare_condition", None)
+                cond_ctx = (prepare_condition(prep, condition)
+                            if prepare_condition is not None else None)
+            traj = []
+            for i, t in enumerate(range(self.num_timesteps, 0, -1)):
+                with span("sampler.step", t=t):
+                    nz = step_noises[i] if step_noises is not None else None
+                    x = self._reverse_step(sched, condition, x, t, generator, nz, prep, cond_ctx)
+                    if return_trajectory:
+                        traj.append(x)
             if return_trajectory:
-                traj.append(x)
-        if return_trajectory:
-            return x, torch.stack(traj)
-        return x
+                return x, torch.stack(traj)
+            return x
+
+    def _featurize(self, condition: torch.Tensor) -> torch.Tensor:
+        """The condition as the network takes it (the waveform samplers': as given)."""
+        return condition
 
     def draw_noise_stream(self, shape, generator: torch.Generator | None, device=None,
                           dtype=torch.float32, cut=None) -> tuple:
@@ -255,11 +269,6 @@ class SDDM_spectrogram(SDDM):
         """``SDDM.forward`` on the featurized condition: with ``feature_fn``
         set, raw audio ``[B, 1, T]`` becomes its spectrogram first."""
         return super().forward(target, self._featurize(condition), generator, draws, dropout)
-
-    def infer(self, condition, generator=None, noise_stream=None, *,
-              return_trajectory: bool = False):
-        return super().infer(self._featurize(condition), generator, noise_stream,
-                             return_trajectory=return_trajectory)
 
     def _x_T(self, sched, condition, generator=None, noise=None) -> torch.Tensor:
         if noise is not None:
@@ -332,13 +341,17 @@ class SDDM_with_SNREstimator:
         cross-fade overlap-add back to ``[B, 1, T]``.  ``noise_stream`` is
         ``(xT_noise, step_noises)``, ``step_noises[i]`` the draw of step
         t = T - i, in place of every draw from ``generator``."""
-        condition_seg = self.segmentor(condition)
-        vsched = self.tables(condition_seg)
-        xT_noise, step_noises = noise_stream if noise_stream is not None else (None, None)
-        x = var.get_x_T(vsched, condition_seg, generator, xT_noise)
-        prep = self._prepare_network()
-        for i, t in enumerate(range(self.num_timesteps, 0, -1)):
-            predicted = self.network(condition_seg, x, var.get_noise_level(vsched, t), **prep)
-            nz = step_noises[i] if step_noises is not None else None
-            x = var.p_transition(vsched, x, t, predicted, generator, nz)
-        return self.segmentor.overlap_add(x)
+        with span("sampler.call"):
+            xT_noise, step_noises = noise_stream if noise_stream is not None else (None, None)
+            with span("sampler.prepare"):
+                condition_seg = self.segmentor(condition)
+                vsched = self.tables(condition_seg)
+                x = var.get_x_T(vsched, condition_seg, generator, xT_noise)
+                prep = self._prepare_network()
+            for i, t in enumerate(range(self.num_timesteps, 0, -1)):
+                with span("sampler.step", t=t):
+                    predicted = self.network(condition_seg, x, var.get_noise_level(vsched, t),
+                                             **prep)
+                    nz = step_noises[i] if step_noises is not None else None
+                    x = var.p_transition(vsched, x, t, predicted, generator, nz)
+            return self.segmentor.overlap_add(x)

@@ -13,7 +13,8 @@ only feeds the writer.  Every ``valid_period`` epochs the sampler (the full
 T steps, or ``valid_steps`` / ``valid_ddim``) runs on ``n_valid_data_batch``
 batches: loss and metrics against the clean target, and the output and
 target WAVs in ``<run>/samples/``.  ``profile_dir`` traces steps [2, 12) of
-the first epoch with ``torch.profiler``.
+the first epoch with ``torch.profiler`` into ``trace.json``, the program's
+spans of those steps among its events.
 
 Over a mesh of ranks (``parallel/``) the step runs under DDP on a data mesh,
 or on parameters sharded over the model axis of a ``(data, model)`` mesh;
@@ -28,6 +29,8 @@ as it always has.
 
 from __future__ import annotations
 
+import itertools
+import json
 import time
 from pathlib import Path
 
@@ -38,6 +41,8 @@ from ..data.wav_io import save_wav
 from ..models.initializers import init_network
 from ..models.unet_packed import plain_network
 from ..parallel import global_mean, make_mesh, parallel_model, rank_seed
+from ..utils import profiling
+from ..utils.profiling import span
 from ..utils.util import MetricTracker, inf_loop, param_count
 from .base_trainer import BaseTrainer
 
@@ -57,16 +62,27 @@ def make_train_step(model, criterion, optimizer):
     the dropout masks from ``dropout``, a ``DropoutMasks``, by default drawn
     from ``generator`` after the q draws), the criterion on (predicted,
     drawn) noise, ``backward`` and ``optimizer.step()``.  The loss is
-    returned on the device, detached."""
+    returned on the device, detached.
+
+    Spans (``utils/profiling``, while recording): ``train.step``, inside it
+    ``train.forward`` (dequant, forward, criterion), ``train.backward`` and
+    ``train.optimizer`` (the step; the gradients are set to None before the
+    forward, which launches nothing), each timed on the card too
+    (``Span.device_ms``) when the batch lies there."""
 
     def train_step(target, condition, generator=None, draws=None, dropout=None):
-        target, condition = _dequant(target), _dequant(condition)
-        optimizer.zero_grad(set_to_none=True)
-        predicted, noise = model.forward(target, condition, generator, draws, dropout)
-        loss = criterion(predicted, noise)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        on_card = target.is_cuda
+        with span("train.step"):
+            optimizer.zero_grad(set_to_none=True)
+            with span("train.forward", device=on_card):
+                target, condition = _dequant(target), _dequant(condition)
+                predicted, noise = model.forward(target, condition, generator, draws, dropout)
+                loss = criterion(predicted, noise)
+            with span("train.backward", device=on_card):
+                loss.backward()
+            with span("train.optimizer", device=on_card):
+                optimizer.step()
+            return loss.detach()
 
     return train_step
 
@@ -154,13 +170,20 @@ class Trainer(BaseTrainer):
         prof = None
 
         step_losses = []  # device scalars; one host sync at the epoch's end
-        for batch_idx, (target, condition, _idx) in enumerate(self.data_loader):
+        batches = iter(self.data_loader)
+        for batch_idx in itertools.count():
+            with span("train.data"):  # the wait for the loader and the copy to the card
+                batch = next(batches, None)
+                if batch is not None:
+                    target, condition = self._to_device(*batch[:2])
+            if batch is None:
+                break
             if profile_armed and batch_idx == 2:
-                prof = _start_profile()
+                since, prof = profiling.mark(), _start_profile()
             if prof is not None and batch_idx == 12:
-                _stop_profile(prof, profile_dir)
+                _stop_profile(prof, profile_dir, since)
                 prof, profile_armed = None, False
-            loss = self._train_step(*self._to_device(target, condition), self.generator)
+            loss = self._train_step(target, condition, self.generator)
             step_losses.append(loss)
             if batch_idx > 0 and batch_idx % self.log_step == 0:
                 loss_val = float(global_mean(loss, self.mesh))
@@ -171,7 +194,7 @@ class Trainer(BaseTrainer):
             if batch_idx == self.len_epoch:
                 break
         if prof is not None:
-            _stop_profile(prof, profile_dir)
+            _stop_profile(prof, profile_dir, since)
         log = self.train_metrics.result()
         if step_losses:
             losses = global_mean(torch.stack(step_losses), self.mesh)
@@ -224,11 +247,17 @@ def _start_profile():
     return prof
 
 
-def _stop_profile(prof, profile_dir) -> None:
+def _stop_profile(prof, profile_dir, since: int) -> None:
     """Stop the trace and write it as ``<profile_dir>/trace.json`` (Chrome
-    trace format)."""
+    trace format), with the program's spans opened after the mark ``since``
+    (``train.data``, ``train.step`` and its phases) among its events."""
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     prof.stop()
     Path(profile_dir).mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(Path(profile_dir) / "trace.json"))
+    trace = Path(profile_dir) / "trace.json"
+    prof.export_chrome_trace(str(trace))
+    doc = json.loads(trace.read_text())
+    doc["traceEvents"] += profiling.chrome_events(profiling.spans(since),
+                                                  doc.get("baseTimeNanoseconds", 0))
+    trace.write_text(json.dumps(doc))
