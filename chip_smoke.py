@@ -54,8 +54,9 @@ Then the packed (space-to-depth) engine, ``load_enhancer``'s default:
      B = 32 in float32 (the largest share reread past the staging area) and
      an offset site whose ranges start mid-row; each call's grid plan is
      printed beside it;
- 10. serve the four requests: shapes, trims, finiteness, ``gn_silu_nhwc``
-     launches equal to 33 sites x 12 steps x batches, no NCHW launch;
+ 10. serve the four requests: shapes, trims, finiteness, every forward
+     replayed from the engine's CUDA graph (captured by the canary; the
+     ``gn_silu_nhwc`` wrapper called by no replay), no NCHW launch;
  11. serve them again through the plain NHWC version (bf16 and f32) and hold
      the kernel path against it; hold the packed engine against the plain
      engine of phases 4-8 in float32 (TF32 off), where the two are one
@@ -69,7 +70,8 @@ Then the packed (space-to-depth) engine, ``load_enhancer``'s default:
      peak memory;
  13. profile one packed served batch: device busy by kernel, the idle share,
      and the count of cuDNN's NCHW<->NHWC transposes; the NHWC kernel must
-     show time and one launch per ``gn_silu_nhwc`` call under its name.
+     show time and 33 sites x 12 steps x batches launches under its name
+     (the graph's replays, counted on the device).
 Then the DiffWave vocoder (SDDM_spectrogram + FusedDiffWave, the committed
 ``artifacts/round5/diffwave`` checkpoint, bf16, DDIM-6):
  14. the build of the CUDA residual-stack kernel, started in phase 2 beside
@@ -111,8 +113,10 @@ temporary directory outside the checkout:
      kernels' counts can be read) on the flagship's config and checkpoint with
      the dataset on that corpus and ``--steps 12``: ancestral-12, the packed
      engine, bf16, the config's loader (2 files a batch, 2 workers, each
-     batch served at its own row count); ``gn_silu_nhwc`` launches equal to
-     33 x 12 x sampler calls, every row of the corpus served once, every
+     batch served at its own row count); the ``gn_silu_nhwc`` wrapper called
+     33 times by each eager forward and capture and by no replay, one replay of
+     each graph the engine holds profiled (33 ``nhwc_gn_silu`` kernels on the
+     device), every row of the corpus served once, every
      sampler output finite, and the output means of its ``evaluate`` within
      ``OUTPUT_LIMITS`` of the committed ``output_*.npy``; then again with the
      sampler's generator seeded 1, and once in float32, whose means are
@@ -345,7 +349,7 @@ variable engines' 33 GroupNorm+SiLU sites run ``gn_silu_nhwc`` forward and
      (``SNR_E2E_TOL``); serve seconds;
  48. the flagship's epoch-250 checkpoint through ``load_enhancer(steps=12)`` (packed,
      bf16) under ``sr3``, ``supportive``, ``conditional`` and the conditional-q
-     ``with_ddim()``: finite outputs, 33 x 12 launches a batch; in float32 each step's
+     ``with_ddim()``: finite outputs, every forward a replay of the CUDA graph; in float32 each step's
      network output kernel vs plain and 12 steps on two rows under one noise stream,
      card against the CPU; one bf16 train step of the plain flagship under the
      conditional q process, the kernel path against both NCHW directions plain at
@@ -376,16 +380,35 @@ variable engines' 33 GroupNorm+SiLU sites run ``gn_silu_nhwc`` forward and
      ``load_enhancer`` (packed, ancestral-12) on the four requests (9 rows, one batch
      of 16), against the same serve in this process from the same seed: (a) two gloo
      ranks sharing the card, 8 rows each (``python -m sddm_tpu_torch.parallel.dryrun
-     --serve``), float32 and bf16 at ``MESH_F32_REL`` / ``MESH_BF16_REL``, 396
-     ``nhwc_gn_silu`` launches and no fallback on each rank; (b) ``torchrun
+     --serve``), float32 and bf16 at ``MESH_F32_REL`` / ``MESH_BF16_REL``, the
+     ``gn_silu_nhwc`` wrapper's calls fitting the rank's CUDA graph captures and
+     replays, and no fallback on each rank; (b) ``torchrun
      --standalone --nproc_per_node=1`` (NCCL) bit for bit; (c) ``warmup()``'s seconds,
      then ``load_enhancer(warmup=True, warmup_timeout_s=...)`` serving the same bits;
      (d) ``batch_rows`` 3, which two ranks do not divide, served whole on each.
 
+Then the packed denoiser's CUDA graph (``PackedUNetModified2.forward`` replays
+a graph of its body, captured once per input shape):
+ 54. the flagship's epoch-250 checkpoint through ``load_enhancer(steps=12)`` at
+     64 and 256 rows a call (the serving cells' shapes, bf16), the canary's
+     call capturing the graph: at each, three fresh forwards from the graph
+     against ``_forward_eager`` bit for bit (``torch.equal``); ``SDDM.infer``
+     under one ``noise_stream``, and from one seeded generator, through the
+     graph against the eager loop bit for bit; the four requests served:
+     12 replays a call and no wrapper call; one served call profiled, in a
+     window opened by ``LEAD_LAUNCHES`` kernels of its own: the graph's
+     ``nhwc_gn_silu`` kernels among the device events (33 x 12) and 12
+     forwards by a forward hook; the same call, eager and from the graph, in
+     windows of CUDA activity alone (printed: what such a window misses);
+     served calls eager and from the graph in
+     turns (eager, graph, graph, eager), and each side's mean ``sampler.step``
+     host wall under ``profiling.recording()``; the memory the capture holds.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing of JAX
 or of the JAX package.  ``python3 chip_smoke.py --serve-mesh-cards N`` runs
-phase 53 alone with its ranks over NCCL on a card each (needs N cards).
+phase 53 alone with its ranks over NCCL on a card each (needs N cards);
+``python3 chip_smoke.py --denoiser-graph`` runs phase 54 alone.
 """
 
 from __future__ import annotations
@@ -787,6 +810,9 @@ MESH_RANKS, MESH_TIMEOUT, MESH_DEVICE, MESH_BACKEND = 2, 300, "cuda", "gloo"
 MESH_F32_REL, MESH_BF16_REL = 1e-5, 2e-2
 MESH_ODD_ROWS = 3
 MESH_WARMUP_FACTOR, MESH_WARMUP_FLOOR = 10.0, 60.0
+# Phase 54: the serving cells' rows a call, and the served calls a side of each turn.
+GRAPH_ROWS = (64, 256)
+GRAPH_TIMED_CALLS = 5
 
 
 def log(msg: str = "") -> None:
@@ -967,16 +993,82 @@ def plain_gn_silu():
     return routed(blocks, "gn_silu", gn_silu_reference)
 
 
+@contextlib.contextmanager
 def plain_gn_silu_nhwc():
     """Every GroupNorm site of the packed engine on ``gn_silu_nhwc_reference``
-    (which takes no group-major ``order``: it sums by the one-hot map)."""
+    (which takes no group-major ``order``: it sums by the one-hot map), and
+    the engine's forward eager: a replay of its CUDA graph would run the
+    kernels it captured."""
     from sddm_tpu_torch.models import unet_packed
     from sddm_tpu_torch.ops.gn_silu import gn_silu_nhwc_reference
 
     def plain(*args, order=None, **kwargs):
         return gn_silu_nhwc_reference(*args, **kwargs)
 
-    return routed(unet_packed, "gn_silu_nhwc", plain)
+    with routed(unet_packed, "gn_silu_nhwc", plain), \
+            routed(unet_packed.PackedUNetModified2, "replays_graphs", False):
+        yield
+
+
+def graphed_launches_hold(launches: int, forwards: int, captures: int, replays: int,
+                          sites: int | None = None) -> bool:
+    """Whether ``gn_silu_nhwc``'s wrapper count fits a packed engine's
+    forwards: an eager forward and a capture each pass through the wrapper
+    at every site, a replay of the CUDA graph through none.  The kernels a
+    replay launches are counted by the profiler ([13], [21], [54])."""
+    sites = PACKED_SITES if sites is None else sites
+    return launches == sites * (forwards - replays + captures)
+
+
+LEAD_LAUNCHES = 256  # short kernels of its own that open a window counting a call's kernels
+LEAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's
+
+
+def lead_launches(device) -> None:
+    """``LEAD_LAUNCHES`` kernels of ``torch.cuda._sleep`` at the start of a
+    profiler window, then a synchronise.  Late in a whole run the profiler
+    dropped the first ~50 device events of each window (phase 54: eager
+    calls 2 ``nhwc_gn_silu`` kernels short, replayed calls the first
+    replay's first kernel short, alone in a fresh process none), so a window
+    that counts a call's kernels opens with these and counts what it kept
+    of them (``LEAD_KERNEL``)."""
+    import torch
+
+    for _ in range(LEAD_LAUNCHES):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize(device)
+
+
+def replayed_kernels(eng, device) -> dict:
+    """The ``nhwc_gn_silu`` kernels that one replay of each CUDA graph the
+    packed engine ``eng`` holds launches, by the profiler's device events
+    (CPU and CUDA activity, :func:`lead_launches` first):
+    ``{rows: (seen, the capture's wrapper calls)}``; ``seen`` is None where
+    the profiler saw no device event in any window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from sddm_tpu_torch.utils.profiling import profiled
+
+    seen = {}
+    for key, graph in list(eng._graphs.items()):
+        any_device, count = [], 0
+        for margin, _ in profiler_windows():
+            with profiled(ProfilerActivity.CPU, ProfilerActivity.CUDA, margin_s=margin) as prof:
+                lead_launches(device)
+                graph(*graph.inputs)
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            any_device += events
+            count = sum(e.count for e in events if NHWC_KERNEL in e.key)
+            if count:
+                break
+            UNSEEN_WINDOWS.append(sorted((e.key[:60], e.count) for e in events))
+        rows = key[0][0]
+        seen[rows] = (count if profiler_saw(any_device, f"a replay at {rows} rows") else None,
+                      graph.launches)
+    return seen
 
 
 def plain_diffwave_stack():
@@ -1697,22 +1789,26 @@ def packed_phases(device, config, net_args, audios, plain_enh, gen) -> tuple:
     audio_s = sum(a.size for a in audios) / config["sample_rate"]
     _, warm_s = serve_requests(enh, audios, SEED + 1, device)
     torch.cuda.reset_peak_memory_stats()
-    gn_silu.launches = gn_silu_nhwc.launches = 0
+    gn_silu.launches = gn_silu_nhwc.launches = eng.captures = eng.replays = 0
     served, serve_s = serve_requests(enh, audios, SEED, device)
     launches, nchw_launches = gn_silu_nhwc.launches, gn_silu.launches
+    captures, replays = eng.captures, eng.replays
     peak = torch.cuda.max_memory_allocated()
+    forwards = STEPS * n_batches
     log(f"[10] {type(eng).__name__} served {len(audios)} requests: warm-up {warm_s:.3f} s, timed {serve_s:.3f} s (RTF {serve_s / audio_s:.4f}), "
-        f"gn_silu_nhwc.launches {launches}, gn_silu.launches {nchw_launches}, peak "
-        f"{peak / 2**20:.1f} MiB")
+        f"{forwards} forwards: {replays} replayed from the CUDA graph captured in set-up, "
+        f"{captures} captures, gn_silu_nhwc wrapper calls {launches}, gn_silu.launches "
+        f"{nchw_launches}, peak {peak / 2**20:.1f} MiB")
     for a, y in zip(audios, served):
         if y.shape != a.shape or not np.isfinite(y).all() or np.abs(y).max() > 1.0:
             fail(f"packed served output shape {y.shape} for input {a.shape}, "
                  f"finite {np.isfinite(y).all()}")
-    expected = PACKED_SITES * STEPS * n_batches
-    if launches != expected or nchw_launches != 0:
-        fail(f"gn_silu_nhwc.launches = {launches}, expected {expected} ({PACKED_SITES} sites x "
-             f"{STEPS} steps x {n_batches} batches); gn_silu.launches = {nchw_launches}, "
-             "expected 0")
+    graphed = replays == forwards and captures == 0 if device.type == "cuda" else replays == 0
+    if not graphed_launches_hold(launches, forwards, captures, replays) or not graphed or \
+            nchw_launches != 0:
+        fail(f"gn_silu_nhwc wrapper calls {launches}, graph captures {captures} and replays "
+             f"{replays} over {forwards} forwards ({STEPS} steps x {n_batches} batches; on a "
+             f"card every forward a replay); gn_silu.launches = {nchw_launches}, expected 0")
 
     # -- 11. the same requests through the plain NHWC version; the two engines ---
     over = []
@@ -1859,10 +1955,12 @@ def packed_phases(device, config, net_args, audios, plain_enh, gen) -> tuple:
             f"launches {transposes}")
         for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:14]:
             log(f"    {ms:9.3f} ms {ms / busy_ms:6.3f} x{calls[key]:<5d} {key[:90]}")
-        if not (gn_ms > 0 and gn_calls == launches):
-            fail(f"gn_silu_nhwc launched {launches} times in the served batch, but the profile "
-                 f"shows {gn_calls} launches and {gn_ms} ms under {NHWC_KERNEL}")
+        if not (gn_ms > 0 and gn_calls == PACKED_SITES * forwards):
+            fail(f"the served batch's {forwards} forwards ({replays} from the graph in [10]) "
+                 f"should launch {PACKED_SITES * forwards} {NHWC_KERNEL} kernels, but the "
+                 f"profile shows {gn_calls} launches and {gn_ms} ms under {NHWC_KERNEL}")
     else:
+        gn_calls = None
         log("[13] the profiler saw no device time: breakdown not measured")
     if over:
         fail(f"readings over their limits: {over}")
@@ -1873,7 +1971,9 @@ def packed_phases(device, config, net_args, audios, plain_enh, gen) -> tuple:
         "route": "cuda",
         "source": "sddm_tpu_torch/csrc/gn_silu.cu",
         "replaces": "sddm_tpu/experimental/pallas_gn_silu.py:142",
-        "launches": launches,
+        "launches": gn_calls,
+        "wrapper_calls_served_batch": launches,
+        "graph_replays_served_batch": replays,
         "max_abs_err": max_err["bfloat16"],
         "max_abs_err_f32": max_err["float32"],
         "ms": big["ms"],
@@ -2058,23 +2158,34 @@ def file_to_score_phases(work: Path, smi: str, device) -> dict:
         run = run_infer(argv, seed=seed)
         run["launches"], stray = kernel.launches, other.launches
         rows = run["rows"]
-        expected = sites_per_forward * STEPS * len(rows)
+        forwards = STEPS * len(rows)
+        net = run["network"]
+        run["graph"] = {"captures": getattr(net, "captures", 0),
+                        "replays": getattr(net, "replays", 0)}
         run["means"] = mean_scores(run["samples"])
         engine = "packed" if packed else "plain"
+        if packed:
+            expected = (f"{sites_per_forward} x ({forwards} forwards - {run['graph']['replays']}"
+                        f" replayed from a CUDA graph + {run['graph']['captures']} captures)")
+            held = graphed_launches_hold(run["launches"], forwards, sites=sites_per_forward,
+                                         **run["graph"])
+            held = held and (run["graph"]["replays"] > 0) == (device.type == "cuda")
+        else:
+            expected = f"{sites_per_forward} x {STEPS} x {len(rows)}"
+            held = run["launches"] == sites_per_forward * forwards
         log(f"{tag} python -m sddm_tpu_torch.infer {' '.join(argv[2:])} ({engine} engine, "
             f"{dtype}, generator seed {seed}): {len(rows)} sampler calls of "
-            f"{min(rows)}-{max(rows)} rows ({sum(rows)} rows), {run['launches']} launches "
-            f"(expected {sites_per_forward} x {STEPS} x {len(rows)} = {expected}), "
-            f"{stray} of the other GroupNorm kernel; serve {run['serve_s']:.1f} s, scoring "
-            f"{run['score_s']:.1f} s on {smi}")
+            f"{min(rows)}-{max(rows)} rows ({sum(rows)} rows), {run['launches']} wrapper "
+            f"calls (expected {expected}), {stray} of the other GroupNorm kernel; serve "
+            f"{run['serve_s']:.1f} s, scoring {run['score_s']:.1f} s on {smi}")
         per_call = config["infer_data_loader"]["args"]["batch_size"]
         if len(rows) != math.ceil(CORPUS_FILES / per_call):
             fail(f"the CLI made {len(rows)} sampler calls")
         if sum(rows) != n_rows:
             fail(f"the CLI served {sum(rows)} rows, the corpus has {n_rows}")
-        if run["launches"] != expected or stray != 0:
-            fail(f"the CLI's kernel launched {run['launches']} times (expected {expected}), "
-                 f"the other GroupNorm kernel {stray} (expected 0)")
+        if not held or stray != 0:
+            fail(f"the CLI's kernel wrapper was called {run['launches']} times (expected "
+                 f"{expected}), the other GroupNorm kernel {stray} (expected 0)")
         return run
 
     def gate(run, label):
@@ -2108,6 +2219,13 @@ def file_to_score_phases(work: Path, smi: str, device) -> dict:
     gate(runs["seed 0"], "packed")
     gen = torch.Generator(device=device).manual_seed(SEED)
     engine = runs["seed 0"]["network"]
+    replayed = replayed_kernels(engine, device) if device.type == "cuda" else {}
+    log(f"    one replay of each CUDA graph the seed-0 CLI's engine holds, under the profiler: "
+        f"{NHWC_KERNEL} kernels by rows (seen, the capture's wrapper calls) {replayed}")
+    if any(seen is not None and seen != PACKED_SITES for seen, _ in replayed.values()) or \
+            any(calls != PACKED_SITES for _, calls in replayed.values()):
+        fail(f"[21] a replay of the CLI's graphs launched other than {PACKED_SITES} "
+             f"{NHWC_KERNEL} kernels: {replayed}")
     sites = packed_sites(engine, ns, device)
     nhwc_served = hold_served_rows("21", NHWC_KERNEL, runs["seed 0"]["rows"], lambda rows: (
         ((rows,) + hwc, check_nhwc((rows,) + hwc, m.groups, m.group_of, m.count, m.offset, 1.0,
@@ -2141,7 +2259,8 @@ def file_to_score_phases(work: Path, smi: str, device) -> dict:
     def kept(run):
         return {"calls": len(run["rows"]), "rows": sum(run["rows"]),
                 "rows_per_call": dict(sorted(collections.Counter(run["rows"]).items())),
-                "launches": run["launches"], "serve_s": run["serve_s"],
+                "launches": run["launches"], "graph": run.get("graph"),
+                "serve_s": run["serve_s"],
                 "score_s": run["score_s"], "means": run["means"]}
 
     committed_means = {m: [float(committed[m][0].mean()), float(committed[m][1].mean())]
@@ -2156,9 +2275,11 @@ def file_to_score_phases(work: Path, smi: str, device) -> dict:
         "anc12": {label: kept(run) for label, run in runs.items()},
         "anc12_plain_engine": {**kept(plain), "paired_sisnr_difference_db": paired},
         "served_shapes_max_abs_err": {NHWC_KERNEL: nhwc_served, "gn_silu_nchw": nchw_served},
+        "replayed_kernels": {str(k): v for k, v in replayed.items()},
         "nvidia_smi": smi,
     }
     return {"nhwc_launches": runs["seed 0"]["launches"], "nchw_launches": plain["launches"],
+            "nhwc_graph": runs["seed 0"]["graph"], "replayed_kernels": record["replayed_kernels"],
             "record": record}
 
 
@@ -5168,7 +5289,8 @@ def first_step_conditioning(model, rows, device) -> float:
     """The least std / |mean| over the rows and groups of every GroupNorm site
     of the packed engine's forward at a sampler's first step on ``rows`` (its
     x_T drawn from a seeded generator): how near-constant a group gets, where
-    the one-pass variance of the statistics loses digits."""
+    the one-pass variance of the statistics loses digits.  The forward runs
+    eager: a replay of the engine's CUDA graph calls no module's hooks."""
     import torch
 
     from sddm_tpu_torch.ops.gn_silu import _divisor, _nhwc_moments
@@ -5186,7 +5308,7 @@ def first_step_conditioning(model, rows, device) -> float:
 
     hooks = [m.register_forward_pre_hook(hook) for m in engine.gns.values()]
     try:
-        with torch.no_grad():
+        with torch.no_grad(), routed(engine, "replays_graphs", False):
             x_t = model._x_T(sched, rows, torch.Generator(device=device).manual_seed(SEED))
             level = sched.sqrt_alpha_bar[model.num_timesteps] * torch.ones(
                 (rows.shape[0], 1, 1), device=device)
@@ -5201,7 +5323,8 @@ def transitions_phase(config, net_args, audios, device) -> dict:
     """Phase 48: the flagship's epoch-250 checkpoint through
     ``load_enhancer(steps=12)`` (the packed engine, bf16) under ``sr3``,
     ``supportive``, ``conditional`` and the conditional-q ``with_ddim()``:
-    the four requests served finite with 33 x 12 NHWC launches a batch;
+    the four requests served finite, each forward replayed from the packed
+    engine's CUDA graph (``graphed_launches_hold``);
     in float32 (TF32 off) each step's network output kernel vs plain
     (``ZOO_E2E_TOL``; printed for ``STEPWISE_PRINTED`` beside the first
     forward's worst std / |mean|) and 12 steps on two rows under one noise
@@ -5248,11 +5371,14 @@ def transitions_phase(config, net_args, audios, device) -> dict:
                  f"{model.p_transition} at {model.num_timesteps} steps, fallback "
                  f"{enh.engine_fallback}")
         serve_requests(enh, audios, SEED + 1, device)  # cuDNN's autotuning, the allocator
-        gn_silu_nhwc.launches = gn_silu.launches = 0
+        gn_silu_nhwc.launches = gn_silu.launches = engine.captures = engine.replays = 0
         served, serve_s = serve_requests(enh, audios, SEED, device)
         launches = (gn_silu_nhwc.launches, gn_silu.launches)
+        graph = {"captures": engine.captures, "replays": engine.replays}
         finite = all(y.shape == a.shape and np.isfinite(y).all() for a, y in zip(audios, served))
-        want = (PACKED_SITES * STEPS * n_batches, 0)
+        forwards = STEPS * n_batches
+        want = (PACKED_SITES * (forwards - graph["replays"] + graph["captures"]), 0)
+        graphed = graph["replays"] == forwards if device.type == "cuda" else True
         # float32, TF32 off: each step kernel vs plain, and the card against the CPU
         engine.net.dtype = torch.float32
         step_err, step_rel = stepwise_kernel_vs_plain(enh, audios, device, plain_gn_silu_nhwc)
@@ -5272,19 +5398,21 @@ def transitions_phase(config, net_args, audios, device) -> dict:
         on_cpu = cpu_model.infer(rows, noise_stream=(x_t, noise))
         cpu_s = time.perf_counter() - start
         err, rel = differences(card, on_cpu)
-        ok = finite and launches == want and (step_rel <= ZOO_E2E_TOL or not step_gated) and \
+        ok = finite and launches == want and graphed and \
+            (step_rel <= ZOO_E2E_TOL or not step_gated) and \
             err <= ZOO_CARD_VS_CPU_TOL[0] and rel <= ZOO_CARD_VS_CPU_TOL[1]
         record[name] = {"p_transition": model.p_transition, "q_transition": model.q_transition,
                         "load_s": load_s, "serve_s": serve_s, "launches": list(launches),
-                        "step_max_abs": step_err, "step_rel_l2": step_rel,
+                        "graph": graph, "step_max_abs": step_err, "step_rel_l2": step_rel,
                         "step_gated": step_gated, "first_step_min_std_to_mean": conditioning,
                         "card_vs_cpu_max_abs": err, "card_vs_cpu_rel_l2": rel,
                         "cpu_sampler_s": cpu_s}
         log(f"[48] {name} ({model.p_transition}, q {model.q_transition}): load_enhancer(steps="
             f"{STEPS}{', ddim=True' if ddim else ''}) on the flagship's epoch-250 checkpoint "
             f"{load_s:.2f} s, {type(engine).__name__}; {len(audios)} requests in {n_batches} "
-            f"batch at bf16: serve {serve_s:.3f} s, finite and shaped {finite}, launches "
-            f"gn_silu_nhwc, gn_silu {launches} (expected {want}); float32, TF32 off: each of the "
+            f"batch at bf16: serve {serve_s:.3f} s, finite and shaped {finite}, wrapper calls "
+            f"gn_silu_nhwc, gn_silu {launches} (expected {want}: {forwards} forwards, CUDA "
+            f"graph {graph}); float32, TF32 off: each of the "
             f"{STEPS} steps' network output, kernel vs plain on the same input, max|d| "
             f"{step_err:.3e}, worst rel L2 {step_rel:.3e} ({gate}; the first forward's "
             f"GroupNorm groups down to std / |mean| {conditioning:.2e}); {ZOO_CPU_ROWS} "
@@ -5892,27 +6020,31 @@ def serve_mesh_phase(work: Path, audios, device) -> dict:
         bits = all(np.array_equal(a, b) for a, b in zip(got["outputs"][0], single[name]))
         err, rel = served_differences(got["outputs"][0], single[name])
         calls = math.ceil(n_rows / rows) if not sharded else math.ceil(n_rows / BATCH_ROWS)
-        want = PACKED_SITES * STEPS * calls
+        forwards = STEPS * calls
         launches = [r["launches"]["gn_silu_nhwc"] for r in ranks]
+        graphs = [(r["graph_captures"], r["graph_replays"]) for r in ranks]
+        on_card = MESH_DEVICE == "cuda"
         finite = all(np.isfinite(y).all() and y.shape == a.shape
                      for a, y in zip(audios, got["outputs"][0]))
         ok = (finite and same and (bits if limit is None else rel <= limit)
-              and launches == [want] * len(ranks)
+              and all(graphed_launches_hold(n, forwards, c, r) and (r > 0) == on_card
+                      for n, (c, r) in zip(launches, graphs))
               and all(r["launches"]["gn_silu"] == 0 and r["engine"] == "PackedUNetModified2"
                       and r["engine_fallback"] is None and r["sharded"] == sharded
                       and r["rows"] == rows for r in ranks))
         log(f"    {name}: {[r['rows'] for r in ranks]} rows a call on {len(ranks)} rank(s) "
             f"({ranks[0]['backend']}, sharded {sharded}); every rank the same bits: {same}; "
             f"against one process: bit for bit {bits}, max|d| {err:.3e}, rel L2 {rel:.3e} "
-            f"(limit {'bit for bit' if limit is None else limit}); nhwc_gn_silu launches by "
-            f"rank {launches} (expected {want}); engines {[r['engine'] for r in ranks]}, "
+            f"(limit {'bit for bit' if limit is None else limit}); {forwards} forwards a "
+            f"rank, gn_silu_nhwc wrapper calls by rank {launches}, CUDA graph (captures, "
+            f"replays) by rank {graphs}; engines {[r['engine'] for r in ranks]}, "
             f"fallback {[r['engine_fallback'] for r in ranks]}; serve "
             f"{[round(r['seconds'], 3) for r in ranks]} s {'ok' if ok else 'OVER'}")
         if not ok:
             failures.append(f"{name}: same {same}, bits {bits}, rel {rel}, launches {launches}, "
-                            f"finite {finite}, ranks {ranks}")
+                            f"graphs {graphs}, finite {finite}, ranks {ranks}")
         return {"max_abs": err, "rel_l2": rel, "bit_equal": bits, "ranks_equal": same,
-                "launches": launches, "rows": [r["rows"] for r in ranks],
+                "launches": launches, "graphs": graphs, "rows": [r["rows"] for r in ranks],
                 "seconds": [r["seconds"] for r in ranks]}
 
     log(f"[53] the flagship (packed engine, ancestral-{STEPS}, {len(audios)} requests, {n_rows} "
@@ -5955,6 +6087,194 @@ def serve_mesh_phase(work: Path, audios, device) -> dict:
     log(f"    phase 53: {record['seconds']:.1f} s")
     if failures:
         fail(f"[53] {failures}")
+    return record
+
+
+def denoiser_graph_phase(device) -> dict:
+    """Phase 54: the packed denoiser's CUDA graph at the serving cells' row
+    counts (``GRAPH_ROWS``): the graphed forward and ``SDDM.infer`` bit for
+    bit against the eager ones, the wrapper's calls and the graph's replays,
+    the profiler's view of a replayed call (and what a window of CUDA
+    activity alone sees of it, eager and replayed), served calls in turns
+    with and without the graph, and the memory the capture holds."""
+    import collections
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from sddm_tpu_torch import load_enhancer
+    from sddm_tpu_torch.ops import gn_silu as gn_ops
+    from sddm_tpu_torch.utils import profiling
+    from sddm_tpu_torch.utils.profiling import profiled
+
+    phase_start = time.perf_counter()
+    config = json.loads((RUN / "config.json").read_text())
+    n = config["num_samples"]
+    audios = requests()
+    n_rows = sum(math.ceil(a.size / n) for a in audios)
+    record, failures = {}, []
+
+    def drawn(seed, shape):
+        g = torch.Generator(device=device).manual_seed(seed)
+        return (0.1 * torch.randn(shape, device=device, generator=g),
+                torch.randn(shape, device=device, generator=g),
+                0.3 + 0.6 * torch.rand((shape[0], 1, 1), device=device, generator=g))
+
+    for rows in GRAPH_ROWS:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_reserved()
+        start = time.perf_counter()
+        enh = load_enhancer(RUN / "model_best.ckpt", config, batch_rows=rows, steps=STEPS)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - start
+        model, eng = enh.model, enh.model.network
+        if type(eng).__name__ != "PackedUNetModified2" or len(eng._graphs) != 1:
+            fail(f"[54] load_enhancer at {rows} rows served {type(eng).__name__} holding "
+                 f"{len(getattr(eng, '_graphs', ()))} graphs after its canary, not one")
+        held_gib = (torch.cuda.memory_reserved() - base) / 2**30
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        shape = (rows, 1, n)
+        with torch.no_grad():
+            forward_equal = []
+            for k in range(3):
+                args = drawn(SEED + k, shape)
+                forward_equal.append(bool(torch.equal(
+                    eng(*args), eng._forward_eager(*args, eng.prepare()))))
+
+        def graph_equals_eager(run) -> bool:
+            outs = []
+            for graphed in (True, False):
+                eng.replays_graphs = graphed
+                outs.append(run())
+            del eng.replays_graphs
+            return bool(torch.equal(*outs))
+
+        def seeded():
+            return torch.Generator(device=device).manual_seed(SEED)
+
+        cond = drawn(SEED + 7, shape)[0]
+        stream_equal = graph_equals_eager(lambda: model.infer(
+            cond, noise_stream=model.draw_noise_stream(shape, seeded(), device)))
+        generator_equal = graph_equals_eager(lambda: model.infer(cond, seeded()))
+
+        gn_ops.gn_silu_nhwc.launches = eng.captures = eng.replays = 0
+        served, serve_s = serve_requests(enh, audios, SEED, device)
+        launches, captures, replayed = gn_ops.gn_silu_nhwc.launches, eng.captures, eng.replays
+        n_forwards = STEPS * math.ceil(n_rows / rows)
+        want = PACKED_SITES * n_forwards
+        finite = all(np.isfinite(y).all() and y.shape == a.shape for a, y in zip(audios, served))
+
+        forwards = [0]
+        hook = eng.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+        seen, lead_seen, any_device, busy_ms = 0, 0, [], 0.0
+        try:
+            for margin, _ in profiler_windows():
+                forwards[0] = 0
+                with profiled(ProfilerActivity.CPU, ProfilerActivity.CUDA,
+                              margin_s=margin) as prof:
+                    lead_launches(device)
+                    enh.enhance_batch(audios)
+                    torch.cuda.synchronize()
+                device_events = [e for e in prof.key_averages()
+                                 if e.device_type == DeviceType.CUDA]
+                any_device += device_events
+                seen = sum(e.count for e in device_events if NHWC_KERNEL in e.key)
+                lead_seen = sum(e.count for e in device_events if LEAD_KERNEL in e.key)
+                busy_ms = sum(e.self_device_time_total for e in device_events
+                              if LEAD_KERNEL not in e.key) / 1e3
+                if seen:
+                    break
+                UNSEEN_WINDOWS.append(sorted((e.key[:60], e.count) for e in device_events))
+        finally:
+            hook.remove()
+        profile_seen = profiler_saw(any_device, "[54]'s profiled call")
+
+        # windows as a whole run once saw 395 of 396 in: CUDA activity alone, no lead
+        # launches; the same call eager and from the graph in turns.  Each window
+        # keeps (nhwc_gn_silu kernels, all device events, [(launch's place in the window,
+        # its nhwc_gn_silu kernels)] for the launches that show fewer than most): a graph's
+        # kernels share the correlation id of its launch
+        cuda_only = {"eager": [], "graph": []}
+        for side in ("eager", "graph") * 3:
+            eng.replays_graphs = side == "graph"
+            torch.cuda.synchronize()
+            with profiled(ProfilerActivity.CUDA) as prof:
+                enh.enhance_batch(audios)
+            events = [e for e in prof.profiler.kineto_results.events()
+                      if e.device_type().name == "CUDA"]
+            gn = sorted((e for e in events if NHWC_KERNEL in e.name()),
+                        key=lambda e: e.start_ns())
+            by_launch = collections.Counter(e.correlation_id() for e in gn)
+            order = list(dict.fromkeys(e.correlation_id() for e in gn))
+            most = collections.Counter(by_launch.values()).most_common(1)
+            short = [(i, by_launch[c]) for i, c in enumerate(order)
+                     if most and by_launch[c] < most[0][0]]
+            cuda_only[side].append((len(gn), len(events), short))
+        del eng.replays_graphs
+
+        turns = {"eager": [], "graph": []}
+        for side in ("eager", "graph", "graph", "eager"):
+            eng.replays_graphs = side == "graph"
+            turns[side] += [serve_requests(enh, audios, SEED, device)[1]
+                            for _ in range(GRAPH_TIMED_CALLS)]
+        step_ms = {}
+        for side in ("eager", "graph"):
+            eng.replays_graphs = side == "graph"
+            with profiling.recording() as spans:
+                serve_requests(enh, audios, SEED, device)
+            steps = [s.ms for s in spans if s.name == "sampler.step"]
+            step_ms[side] = sum(steps) / len(steps)
+            replays = sum(s.name == "denoiser.replay" for s in spans)
+            if replays != (len(steps) if side == "graph" else 0):
+                failures.append(f"{rows} rows, {side}: {replays} denoiser.replay spans in "
+                                f"{len(steps)} steps")
+        del eng.replays_graphs
+
+        ok = (all(forward_equal) and stream_equal and generator_equal and finite
+              and (launches, captures, replayed) == (0, 0, n_forwards)
+              and (not profile_seen or (seen == want and forwards[0] == STEPS)))
+        median = {k: float(np.median(v)) for k, v in turns.items()}
+        log(f"[54] {rows} rows a call (bf16, ancestral-{STEPS}): load_enhancer {load_s:.2f} s "
+            f"with the canary's capture, {held_gib:.3f} GiB more reserved, peak "
+            f"{peak_gib:.3f} GiB; graphed forward == _forward_eager {forward_equal}; infer "
+            f"under noise_stream bit for bit {stream_equal}, from a seeded generator "
+            f"{generator_equal}; served {n_rows} rows: {replayed} of {n_forwards} forwards "
+            f"replayed, {captures} captures, {launches} gn_silu_nhwc wrapper calls, finite "
+            f"{finite}; profiled call: {seen} {NHWC_KERNEL} events (expected {want}), "
+            f"{forwards[0]} forwards, device busy {busy_ms:.1f} ms, {lead_seen} of the window's "
+            f"{LEAD_LAUNCHES} lead kernels seen {'ok' if ok else 'OVER'}")
+        log(f"     windows of CUDA activity alone over the same call, eager and from the graph "
+            f"in turns ({NHWC_KERNEL} kernels, all device events, [(place, kernels)] of the launches "
+            f"short of most): eager {cuda_only['eager']}, graph "
+            f"{cuda_only['graph']}")
+        log(f"     served call in turns (eager, graph, graph, eager; {GRAPH_TIMED_CALLS} "
+            f"calls each): eager median {median['eager'] * 1e3:.1f} ms, graph median "
+            f"{median['graph'] * 1e3:.1f} ms ({median['eager'] / median['graph']:.3f}x); "
+            f"sampler.step host wall eager {step_ms['eager']:.3f} ms, graph "
+            f"{step_ms['graph']:.3f} ms")
+        if not ok:
+            failures.append(f"{rows} rows: forward {forward_equal}, stream {stream_equal}, "
+                            f"generator {generator_equal}, wrapper calls {launches}, captures "
+                            f"{captures}, replays {replayed} of {n_forwards}, finite {finite}, "
+                            f"profiled {seen} kernels of {want}, {forwards[0]} forwards")
+        record[str(rows)] = {
+            "load_seconds": load_s, "graph_reserved_gib": held_gib, "peak_gib": peak_gib,
+            "forward_bit_equal": forward_equal, "infer_stream_bit_equal": stream_equal,
+            "infer_generator_bit_equal": generator_equal, "wrapper_calls": launches,
+            "graph_captures": captures, "graph_replays": replayed,
+            "profiled_kernels": seen, "profiled_forwards": forwards[0],
+            "profiled_lead_kernels": lead_seen, "cuda_only_windows": cuda_only,
+            "profiled_busy_ms": busy_ms, "serve_seconds": turns,
+            "sampler_step_host_ms": step_ms}
+        del enh, model, eng
+    record["seconds"] = time.perf_counter() - phase_start
+    log(f"    phase 54: {record['seconds']:.1f} s")
+    if failures:
+        fail(f"[54] {failures}")
     return record
 
 
@@ -6272,6 +6592,7 @@ def main() -> int:
         mesh = serve_mesh_phase(work, audios, device)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    graph = denoiser_graph_phase(device)
     nhwc_bwd_record["launches"] = packed_step["launches"]["gn_silu_nhwc_backward"]
     nhwc_bwd_record["kernels_per_call"] = (packed_step["launches"]["backward_kernels"]
                                            / packed_step["launches"]["gn_silu_nhwc_backward"])
@@ -6280,9 +6601,17 @@ def main() -> int:
     nhwc_record["launches_packed_training_cli"] = packed_cli["launches"][0]
     dw_record["launches_vocoder_end_check"] = vocoder_cli["layer_launches"]
     dw_record["max_abs_err_vocoder_end_check"] = vocoder_cli["max_abs_err"]
-    nhwc_record["launches_file_to_score"] = f2s["nhwc_launches"]
-    nhwc_record["launches_serve_mesh_by_rank"] = mesh["bfloat16"]["launches"]
-    nhwc_record["launches_serve_torchrun"] = mesh["torchrun"]["launches"][0]
+    # served through the packed engine's CUDA graph: the wrapper's calls (eager forwards
+    # and captures), the graph's captures and replays, and the kernels the profiler saw
+    nhwc_record["wrapper_calls_file_to_score"] = f2s["nhwc_launches"]
+    nhwc_record["graph_file_to_score"] = f2s["nhwc_graph"]
+    nhwc_record["profiled_kernels_a_replay_file_to_score"] = f2s["replayed_kernels"]
+    nhwc_record["wrapper_calls_serve_mesh_by_rank"] = mesh["bfloat16"]["launches"]
+    nhwc_record["graph_serve_mesh_by_rank"] = mesh["bfloat16"]["graphs"]
+    nhwc_record["wrapper_calls_serve_torchrun"] = mesh["torchrun"]["launches"][0]
+    nhwc_record["graph_serve_torchrun"] = mesh["torchrun"]["graphs"][0]
+    nhwc_record["profiled_kernels_graphed_serve"] = {k: v["profiled_kernels"]
+                                                     for k, v in graph.items() if k != "seconds"}
     bwd_record["launches_training_cli"] = training["from_init"]["launches"][1]
     bwd_record["launches_snr_train_step"] = snr["joint_train_step"]["launches"]["gn_silu_backward"]
     bwd_record["launches_snr_estimator_cli"] = snr["estimator_cli"]["launches"][1]
@@ -6379,6 +6708,7 @@ def main() -> int:
         "readers": readers,
         "dropout": drop,
         "serve_mesh": mesh,
+        "denoiser_graph": graph,
         "build_seconds": {"gn_silu": built["seconds"], "diffwave_stack": dw_built["seconds"],
                           "gn_silu_backward": bwd_built["seconds"],
                           "gn_silu_nhwc_backward": nhwc_bwd_built["seconds"]},
@@ -6428,7 +6758,32 @@ def serve_mesh_cards(n: int) -> int:
     return 0
 
 
+def denoiser_graph_alone() -> int:
+    """``python3 chip_smoke.py --denoiser-graph``: phase 54 alone; prints the
+    phase's record and the card's ``nvidia-smi`` line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("--denoiser-graph needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    from sddm_tpu_torch.ops.gn_silu import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    smi = nvidia_smi()
+    log(f"[1] {torch.cuda.get_device_name(0)} | {smi} | torch {torch.__version__}, "
+        f"cuda {torch.version.cuda}")
+    log(f"[2] build: {build()['seconds']:.2f} s")
+    record = denoiser_graph_phase(torch.device("cuda"))
+    log(smi)
+    print(json.dumps(finite_or_none(record)), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--serve-mesh-cards"]:
         sys.exit(serve_mesh_cards(int(sys.argv[2])))
+    if sys.argv[1:2] == ["--denoiser-graph"]:
+        sys.exit(denoiser_graph_alone())
     sys.exit(main())

@@ -127,7 +127,8 @@ class Enhancer:
         """Run the sampler once on zeros at the serving shape, split over the
         ranks as a served batch is, from a generator of its own (the served
         draws stay as they were); it covers the kernels' first build with
-        nvcc, cuDNN's choice of algorithms and the allocator.  Returns the
+        nvcc, cuDNN's choice of algorithms, the allocator and the packed
+        engine's capture of its forward in a CUDA graph.  Returns the
         wall seconds, ending in a device synchronise.  With ``timeout_s`` the
         call runs in a thread and this raises ``TimeoutError`` with a
         diagnostic when it has not finished in that time, as JAX's

@@ -26,10 +26,16 @@ of its plain network on every forward (:class:`_BlockKit`, the default, or
 packed gradients back to the plain parameters, and its GroupNorm sites run
 :class:`GroupNormSiLUNhwcFunction`, whose backward is
 :func:`gn_silu_nhwc_backward`, the backward kernel on the card.
+
+On a card with autograd off, the inference engine's forward replays a CUDA
+graph of its body (:meth:`PackedUNetModified2.forward`), captured once per
+input shape: one graph launch in place of about 250 kernel launches, the
+same kernels and bits.
 """
 
 from __future__ import annotations
 
+import collections
 import os
 from typing import Any, Dict, List, Tuple
 
@@ -46,8 +52,11 @@ from ..ops.gn_silu import (
     gn_silu_nhwc_backward,
     group_order,
 )
+from ..utils.profiling import span
 from .blocks import Downsample, ResnetBlock
 from .unet_modified2 import UNetModified2
+
+MAX_GRAPHS = 4  # captured forwards an engine keeps, the least recently replayed dropped first
 
 
 def _packed_gn_plan(groups: int, sections: Tuple[int, ...]):
@@ -266,6 +275,50 @@ def _conv(x: torch.Tensor, p: dict, stride: int = 1, padding: int = 0) -> torch.
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies on a card, outside any stream capture."""
+    return t.is_cuda and not torch.cuda.is_current_stream_capturing()
+
+
+def _cuda_graph(body):
+    """Capture ``body()`` into a ``torch.cuda.CUDAGraph`` on its own memory
+    pool: ``(graph, body's output)``.  Only this thread's calls are checked
+    against the capture (another thread's work on the card goes on)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = body()
+    return graph, out
+
+
+class _Graph:
+    """One captured forward: the static inputs it reads, the graph, the
+    static output it writes, and the :func:`gn_silu_nhwc` calls its capture
+    made (``launches``: the kernels each replay launches).  A call copies its
+    inputs into the static ones, replays and returns a copy of the output,
+    which the next replay overwrites.  A replay passes through no wrapper,
+    so ``gn_silu_nhwc.launches`` counts only the capture's calls."""
+
+    def __init__(self, body, args):
+        self.inputs = tuple(a.clone(memory_format=torch.contiguous_format) for a in args)
+        before = gn_silu_nhwc.launches
+        try:
+            self.graph, self.output = _cuda_graph(lambda: body(*self.inputs))
+        except Exception as e:
+            shapes = ", ".join(f"{tuple(a.shape)} {a.dtype}" for a in args)
+            raise RuntimeError(
+                f"capturing the packed denoiser's forward in a CUDA graph failed for inputs "
+                f"{shapes} on {args[0].device}: {e}. The forward's body may hold no host "
+                f"synchronisation (a copy from host memory, .item()) and no launch that stream "
+                f"capture refuses") from e
+        self.launches = gn_silu_nhwc.launches - before
+
+    def __call__(self, *args) -> torch.Tensor:
+        for static, a in zip(self.inputs, args):
+            static.copy_(a)
+        self.graph.replay()
+        return self.output.clone()
+
+
 class PackedUNetModified2(nn.Module):
     """Drop-in inference twin of a :class:`UNetModified2`, packed from its
     weights at construction (and again by :meth:`pack`).
@@ -274,7 +327,16 @@ class PackedUNetModified2(nn.Module):
     in the packed representation (0 = the plain network's function on NHWC
     tensors, ``len(channel_mults)`` = everything packed, the default).  The
     plain network stays a submodule, ``self.net``: its parameters give the
-    engine's device, and its ``dtype`` is the engine's compute dtype."""
+    engine's device, and its ``dtype`` is the engine's compute dtype.
+
+    On a card with autograd off, given :meth:`prepare`'s own tree, the
+    forward replays a CUDA graph of :meth:`_forward_eager` (see
+    :meth:`forward`); ``replays_graphs`` is False on the training twins,
+    whose packed tree changes every step.  ``captures`` and ``replays``
+    count the graphs captured and the forwards replayed from one."""
+
+    replays_graphs = True
+    captures = replays = 0
 
     def __init__(self, net: UNetModified2, packed_levels: int | None = None):
         super().__init__()
@@ -283,8 +345,33 @@ class PackedUNetModified2(nn.Module):
         self.net = net
         self.num_levels = len(net.channel_mults)
         self.packed_levels = self.num_levels if packed_levels is None else packed_levels
-        self._masks: Dict[tuple, torch.Tensor] = {}
+        self._new_caches()
         self.pack()
+
+    def _new_caches(self) -> None:
+        """What the engine makes once from its installed tensors and keeps:
+        the offset masks by shape, the noise encoding's frequencies and
+        :meth:`prepare`'s tree by compute dtype, the captured forwards by
+        input shape (least recently replayed first) and the shapes seen once."""
+        self._masks: Dict[tuple, torch.Tensor] = {}
+        self._encodings: Dict[tuple, torch.Tensor] = {}
+        self._prepared: Dict[torch.dtype, Dict] = {}
+        self._graphs: collections.OrderedDict = collections.OrderedDict()
+        self._seen: set = set()
+
+    def _drop_caches(self) -> None:
+        """Forget what was made from the installed tensors, once the card has
+        run every replay that reads them."""
+        if self._graphs and torch.cuda.is_available():
+            torch.cuda.synchronize()
+        for cache in (self._masks, self._encodings, self._prepared, self._graphs, self._seen):
+            cache.clear()
+
+    def _apply(self, *args, **kwargs):
+        # .to(), .cuda(), .half() replace the buffers that the caches hold
+        out = super()._apply(*args, **kwargs)
+        self._drop_caches()
+        return out
 
     # -- parameter packing ----------------------------------------------------
     def pack(self) -> Dict:
@@ -455,21 +542,24 @@ class PackedUNetModified2(nn.Module):
 
         self._layout = {k: walk(v, (k,)) for k, v in tree.items()}
         self.gns = nn.ModuleDict(gns).to(device)
-        self._masks.clear()
+        self._drop_caches()
 
     def prepare(self) -> Dict:
-        """The packed tree for one ``SDDM.infer``: conv and dense weights cast
-        to the compute dtype once (not once per step), GroupNorm sites as
-        their :class:`_GN` modules (f32 affine)."""
+        """The packed tree for ``SDDM.infer`` and :meth:`forward`: conv and
+        dense weights cast to the compute dtype, GroupNorm sites as their
+        :class:`_GN` modules (f32 affine).  Made once per compute dtype after
+        :meth:`pack` (or a move of the engine) and then returned as it is, so
+        that a captured forward reads weights at fixed addresses."""
         dt = self.net.dtype
+        if dt not in self._prepared:
+            def build(node):
+                if isinstance(node, dict):
+                    return {k: build(v) for k, v in node.items()}
+                kind, name = node
+                return self.gns[name] if kind == "gn" else getattr(self, name).to(dt)
 
-        def build(node):
-            if isinstance(node, dict):
-                return {k: build(v) for k, v in node.items()}
-            kind, name = node
-            return self.gns[name] if kind == "gn" else getattr(self, name).to(dt)
-
-        return build(self._layout)
+            self._prepared[dt] = build(self._layout)
+        return self._prepared[dt]
 
     def _offset_mask(self, y: torch.Tensor) -> torch.Tensor:
         key = (tuple(y.shape[1:]), y.dtype, y.device)
@@ -479,14 +569,67 @@ class PackedUNetModified2(nn.Module):
                                                                                  y.dtype)
         return self._masks[key]
 
+    def _encoding(self, dt: torch.dtype, device: torch.device) -> torch.Tensor:
+        """The noise level encoding's frequencies ``1e4 * 10^(-4 i / half)``
+        in ``dt`` on ``device``, made once: a copy from the host in every
+        forward would wait for the stream, and stream capture refuses it."""
+        key = (dt, device)
+        if key not in self._encodings:
+            half = self.net.inner_channel // 2
+            step = np.arange(half, dtype=np.float32)
+            self._encodings[key] = torch.as_tensor(1e4 * 10.0 ** (-step * 4.0 / half),
+                                                   dtype=dt, device=device)
+        return self._encodings[key]
+
     # -- forward ----------------------------------------------------------------
     def forward(self, condition: torch.Tensor, x_t: torch.Tensor, noise_level: torch.Tensor,
                 prep: Dict | None = None) -> torch.Tensor:
         """condition, x_t: ``[B, 1, T]``; noise_level: any shape flattening to
-        ``[B]``; ``prep``: :meth:`prepare`'s tree (made here when not given).
-        Returns the predicted noise ``[B, 1, T]``."""
-        net = self.net
+        ``[B]``; ``prep``: :meth:`prepare`'s tree (taken here when not given).
+        Returns the predicted noise ``[B, 1, T]``.
+
+        Where :meth:`_replays` holds, the body (:meth:`_forward_eager`) runs
+        from a CUDA graph: the first forward at an input shape runs eager
+        (nvcc's builds, cuDNN's choices, the masks), the second captures the
+        body on static inputs, and every later one replays it
+        (:class:`_Graph`).  The engine keeps ``MAX_GRAPHS`` graphs.  Any
+        other call runs the body eager.  Spans (``utils/profiling``, while
+        recording): ``denoiser.capture`` and ``denoiser.replay``."""
         pp = self.prepare() if prep is None else prep
+        if not self._replays(x_t, pp):
+            return self._forward_eager(condition, x_t, noise_level, pp)
+        key = (tuple(condition.shape), condition.dtype, tuple(x_t.shape), x_t.dtype,
+               tuple(noise_level.shape), noise_level.dtype, x_t.device, self.net.dtype,
+               torch.is_inference_mode_enabled())
+        graph = self._graphs.get(key)
+        if graph is None:
+            if key not in self._seen:
+                self._seen.add(key)
+                return self._forward_eager(condition, x_t, noise_level, pp)
+            with span("denoiser.capture"):
+                graph = _Graph(lambda *a: self._forward_eager(*a, pp),
+                               (condition, x_t, noise_level))
+            self.captures += 1
+            self._seen.discard(key)
+            self._graphs[key] = graph
+            if len(self._graphs) > MAX_GRAPHS:
+                self._graphs.popitem(last=False)
+        self._graphs.move_to_end(key)
+        self.replays += 1
+        with span("denoiser.replay"):
+            return graph(condition, x_t, noise_level)
+
+    def _replays(self, x_t: torch.Tensor, pp: Dict) -> bool:
+        """Whether a forward runs from a CUDA graph: an engine that replays
+        graphs (``replays_graphs``), a card's tensor outside any capture,
+        autograd off and the tree :meth:`prepare` keeps."""
+        return (self.replays_graphs and _on_card(x_t) and not torch.is_grad_enabled()
+                and pp is self._prepared.get(self.net.dtype))
+
+    def _forward_eager(self, condition: torch.Tensor, x_t: torch.Tensor,
+                       noise_level: torch.Tensor, pp: Dict) -> torch.Tensor:
+        """The forward's body, each operation launched from here."""
+        net = self.net
         in_dtype, dt = x_t.dtype, net.dtype
         lp = lambda level: level < self.packed_levels  # noqa: E731
 
@@ -497,10 +640,7 @@ class PackedUNetModified2(nn.Module):
 
         # noise MLP: PositionalEncoding, Dense, silu, Dense, silu
         nl = noise_level.to(dt)
-        half = net.inner_channel // 2
-        step = np.arange(half, dtype=np.float32)
-        vec = torch.as_tensor(1e4 * 10.0 ** (-step * 4.0 / half), dtype=dt, device=nl.device)
-        enc = nl.reshape(-1, 1) * vec[None, :]
+        enc = nl.reshape(-1, 1) * self._encoding(dt, nl.device)[None, :]
         t = torch.cat([torch.sin(enc), torch.cos(enc)], dim=-1)
         mlp = pp["NoiseLevelMLP_0"]
         t = F.silu(t @ mlp["Dense_0"]["kernel"] + mlp["Dense_0"]["bias"])
@@ -583,7 +723,9 @@ class PackedTrainUNetModified2(PackedUNetModified2):
     :class:`GroupNormSiLUNhwcFunction`, the NHWC kernels of both directions
     on the card.  Dropout must be 0, as in the JAX package: the packed layout
     interleaves channels, so per-channel dropout masks would not
-    correspond."""
+    correspond.  Its forward runs eager: the packed tree is new each time."""
+
+    replays_graphs = False
 
     def __init__(self, net: UNetModified2, packed_levels: int | None = None):
         nn.Module.__init__(self)
@@ -593,7 +735,7 @@ class PackedTrainUNetModified2(PackedUNetModified2):
         self.net = net
         self.num_levels = len(net.channel_mults)
         self.packed_levels = self.num_levels if packed_levels is None else packed_levels
-        self._masks: Dict[tuple, torch.Tensor] = {}
+        self._new_caches()
         self._maps: Dict[tuple, tuple] = {}
 
     def pack_traced(self) -> Dict:

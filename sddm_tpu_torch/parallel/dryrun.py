@@ -23,8 +23,9 @@ launches, rows and sharded parameters to ``rank<r>.json``.  A network with
 data mesh of ``n`` ranks, case by case (a checkpoint, a config's overrides,
 ``batch_rows``, steps, the engine, the generator's seed, a rank whose canary
 is made to fail, a warmup limit), and writes each rank's gathered outputs
-to ``<case>/rank<r>.npz`` and its engine, rows, kernel launches and seconds
-to ``<case>/rank<r>.json``.  Parity runs: TF32 off.
+to ``<case>/rank<r>.npz`` and its engine, rows, kernel launches (the
+wrappers' calls), the packed engine's graph captures and replays, and
+seconds to ``<case>/rank<r>.json``.  Parity runs: TF32 off.
 
 Usage: python -m sddm_tpu_torch.parallel.dryrun [N]
        python -m sddm_tpu_torch.parallel.dryrun [N] --step INPUTS.npz OUT_DIR
@@ -300,10 +301,13 @@ def _serve_worker(inputs: Path, out_dir: Path, device: str) -> None:
         enh.generator = torch.Generator(device=dev).manual_seed(case["seed"])
         synchronize()
         gn_silu.launches = gn_silu_nhwc.launches = 0
+        net = enh.model.network
+        graphs = [getattr(net, "captures", 0), getattr(net, "replays", 0)]
         start = time.perf_counter()
         outputs = enh.enhance_batch(audios)
         synchronize()
         seconds = time.perf_counter() - start
+        graphs = [getattr(net, "captures", 0) - graphs[0], getattr(net, "replays", 0) - graphs[1]]
         sub = out_dir / case["name"]
         sub.mkdir(parents=True, exist_ok=True)
         np.savez(sub / f"rank{rank}.npz", *outputs)
@@ -313,6 +317,7 @@ def _serve_worker(inputs: Path, out_dir: Path, device: str) -> None:
             "engine_fallback": enh.engine_fallback, "sharded": enh.sharded,
             "rows": enh.batch_rows // mesh.n_data if enh.sharded else enh.batch_rows,
             "launches": {"gn_silu_nhwc": gn_silu_nhwc.launches, "gn_silu": gn_silu.launches},
+            "graph_captures": graphs[0], "graph_replays": graphs[1],
             "seconds": seconds, "warmup_s": warmup_s,
             "cuda_initialized": torch.cuda.is_initialized()}))
 
